@@ -1,0 +1,154 @@
+"""Shared conv building blocks on NHWC tensors (port of ``models/layers.py``).
+
+Activations stay NHWC as in the JAX package; a conv views its input as
+NCHW (a channels-last tensor, which cuDNN takes without a copy) and hands
+back NHWC. Parameters keep torch's layouts and the reference's state_dict
+names ([O, I, kh, kw] conv weights, BatchNorm weight/bias/running_*).
+
+Precision follows flax's ``dtype``: parameters are f32, and each conv casts
+its input and parameters to the module's compute dtype (explicit casts, no
+autocast). BatchNorm statistics are f32.
+
+Padding is explicit and symmetric (torch-style), never 'SAME'.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Conv(nn.Module):
+    """Conv2d on NHWC tensors with torch-style symmetric padding.
+
+    ``init`` picks the reference's effective initialisation: "torch" =
+    Conv2d's default kaiming-uniform(a=sqrt(5)), i.e. U(+-1/sqrt(fan_in)),
+    with zero bias; "kaiming_out" = kaiming-normal(fan_out) (ResNet).
+    """
+
+    def __init__(self, cin, cout, kernel=3, stride=1, padding=1, dilation=1,
+                 bias=True, init="torch", dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.init, self.dtype = init, dtype
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        o, i, kh, kw = self.weight.shape
+        if self.init == "kaiming_out":
+            std = math.sqrt(2.0 / (o * kh * kw))
+            self.weight.copy_(torch.randn(self.weight.shape, generator=gen) * std)
+        else:
+            bound = 1.0 / math.sqrt(i * kh * kw)
+            self.weight.copy_(torch.rand(self.weight.shape, generator=gen) * 2 * bound - bound)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = F.conv2d(
+            x.to(dt).permute(0, 3, 1, 2),
+            self.weight.to(dt),
+            None if self.bias is None else self.bias.to(dt),
+            self.stride, self.padding, self.dilation,
+        )
+        return y.permute(0, 2, 3, 1)
+
+
+class Linear(nn.Module):
+    """Dense layer (torch weight layout [O, I]) in the compute dtype."""
+
+    def __init__(self, cin, cout, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.empty(cout))
+        self.dtype = dtype
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        self.weight.copy_(torch.rand(self.weight.shape, generator=gen) * 2 * bound - bound)
+        self.bias.zero_()
+
+    def forward(self, x):
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def conv_lrelu(cin, cout, kernel=3, stride=1, padding=1, dilation=1, dtype=torch.float32):
+    """Conv2d + LeakyReLU(0.1) as ``Sequential`` (state_dict name ``<n>.0``)."""
+    return nn.Sequential(
+        Conv(cin, cout, kernel, stride, padding, dilation, dtype=dtype),
+        nn.LeakyReLU(0.1),
+    )
+
+
+class ReflectConv3x3(nn.Module):
+    """Reflection-padded 3x3 conv (monodepth2's Conv3x3; weights at ``.conv``)."""
+
+    def __init__(self, cin, cout, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv(cin, cout, 3, 1, 0, dtype=dtype)
+
+    def forward(self, x):
+        x = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+        return self.conv(x.permute(0, 2, 3, 1))
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the channel (last) axis with flax's semantics.
+
+    Train mode: batch mean and the BIASED variance E[x^2]-E[x]^2 (clipped
+    at 0) in f32; the running statistics update as
+    ra = 0.9 * ra + 0.1 * stat, for the variance with the biased batch
+    variance as flax does (torch's BatchNorm2d uses the unbiased one).
+    eps 1e-5. Normalization in f32, result in the compute dtype.
+    """
+
+    def __init__(self, c, momentum=0.9, eps=1e-5, dtype=torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("running_mean", torch.zeros(c))
+        self.register_buffer("running_var", torch.ones(c))
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        del gen
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        if self.training:
+            xf = x.float()
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1.0 - m) * mean)
+                self.running_var.mul_(m).add_((1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x.float() - mean) * mul + self.bias).to(self.dtype)
+
+
+def max_pool_3x3_s2_p1(x):
+    """torch MaxPool2d(kernel_size=3, stride=2, padding=1) on NHWC."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
+def init_weights(module: nn.Module, gen: torch.Generator) -> None:
+    """Initialise every layer of ``module`` in a fixed order from ``gen``."""
+    for m in module.modules():
+        if isinstance(m, (Conv, Linear, BatchNorm)):
+            m.reset_parameters(gen)

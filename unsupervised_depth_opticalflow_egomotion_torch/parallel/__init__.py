@@ -1,0 +1,3 @@
+from .train_step import build_model, init_state, make_optimizer, make_train_step
+
+__all__ = ["build_model", "init_state", "make_optimizer", "make_train_step"]
