@@ -10,24 +10,31 @@ uses card 0). Phases, in order; any failure exits non-zero:
 2. build: nvcc builds every kernel in
    unsupervised_depth_opticalflow_egomotion_torch/csrc/ for sm_90a, one
    process per source, in parallel.
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes and dtypes of the geom train step (b8, 256x832: the warps and
-   cost volumes run on 2B = 16 images), forward and backward, and timed with
-   CUDA events beside the plain version, a PyTorch library call where one
-   computes the same function, and the least time the card could take.
-4. parity: the geom loss pack and one step's gradients with the kernels on
-   the card against the plain versions on the CPU, at 64x128 b2 in f32
-   (TF32 off), from the same seed.
-5. train: the geom train step at b8 256x832 bf16, ssim_impl="xla", on
-   uint8 frames: warm-up steps, then timed steps; losses finite, parameters
-   moved, every kernel launched. The launch counts are zeroed just before
-   this phase and read just after. Prints a frames/s line in bench.py's
-   shape, and a short profile of one step.
+3. kernels: each of the nine kernels against its plain PyTorch version on
+   the card, at the shapes and dtypes of the train steps (b8, 256x832: the
+   warps and cost volumes run on 2B = 16 images, the SSIM maps and the
+   splats on 8), forward and backward, and timed with CUDA events beside the
+   plain version, a PyTorch library call where one computes the same
+   function, and the least time the card could take.
+4. parity: one train step with the kernels on the card against the plain
+   versions on the CPU, at 64x128 b2 in f32 (TF32 off), from the same seed:
+   the geom step under the default Config, a flow step under
+   flow_occ_impl="splat" and a depth step.
+5. train: the train steps at b8 256x832 bf16 on uint8 frames. The geom step
+   under the default Config (warm-up, then timed steps, a frames/s line in
+   bench.py's shape, a short profile of one step); the same step under
+   ssim_impl="xla" (timed in the same call, for comparison); the flow step
+   under flow_occ_impl="splat" (timed, its own frames/s line and profile)
+   and under the default "splat_nn"; the depth step; the geom step under
+   warp_impl="pallas", pwc_corr="pallas". Every run zeroes the launch
+   counts just before and reads them just after, and checks finite losses,
+   moved parameters of the networks the mode trains, bit-equal parameters of
+   the others, and the exact launch count of every kernel.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with a row per kernel, and
 {"ok": true, "device": {...}}. Details (per-shape kernel table, compiler
-report, profile) go to chiprun_out/chip_smoke/.
+report, profiles) go to chiprun_out/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -44,6 +51,12 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "uint8": 67e12}
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
 WARP_FLOPS_PER_PIXEL = 105  # tap weights, 3 values, 6 derivatives, weight sum
+WARP_NOGRAD_FLOPS_PER_PIXEL = 60  # tap weights, 3 values, weight sum
+WARP_BWD_FLOPS_PER_PIXEL = 90  # tap weights, 6 derivatives contracted, weight-sum term
+SSIM_FWD_FLOPS = 70  # per element: five 9-tap sums, the map
+SSIM_BWD_FLOPS = 150  # per element: the statistics again, four planes, four 9-tap sums
+SPLAT_FLOPS_PER_PIXEL = 20
+_TPU = "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/"
 
 
 def fail(msg: str) -> None:
@@ -89,12 +102,24 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 
 def path_kernels():
-    """The CUDA kernels of the geom step, by name."""
+    """The nine CUDA kernels of the train steps, by name: (kernel, the TPU
+    kernel it replaces)."""
     from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume as cv
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import splat as sp
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as ss
     from unsupervised_depth_opticalflow_egomotion_torch.ops import warp as wp
 
-    return {"warp_gather": wp.WARP_GATHER, "corr_fwd": cv.CORR_FWD,
-            "corr_bwd_df1": cv.CORR_BWD_DF1, "corr_bwd_df2": cv.CORR_BWD_DF2}
+    return {
+        "warp_gather": (wp.WARP_GATHER, _TPU + "warp_window.py:166"),
+        "warp_gather_nograd": (wp.WARP_GATHER_NOGRAD, _TPU + "warp_window.py:429"),
+        "warp_gather_bwd": (wp.WARP_GATHER_BWD, _TPU + "warp_window.py:289"),
+        "corr_fwd": (cv.CORR_FWD, _TPU + "correlation_fused.py:38"),
+        "corr_bwd_df1": (cv.CORR_BWD_DF1, _TPU + "correlation_fused.py:52"),
+        "corr_bwd_df2": (cv.CORR_BWD_DF2, _TPU + "correlation_fused.py:65"),
+        "ssim_fwd": (ss.SSIM_FWD, _TPU + "ssim_fused.py:63"),
+        "ssim_bwd": (ss.SSIM_BWD, _TPU + "ssim_fused.py:95"),
+        "splat_mass": (sp.SPLAT_MASS, _TPU + "splat_window.py:64"),
+    }
 
 
 # ------------------------------------------------------------------ phases
@@ -144,6 +169,8 @@ def phase_kernels():
     import torch.nn.functional as F
 
     from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume as cv
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import splat as sp
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as ss
     from unsupervised_depth_opticalflow_egomotion_torch.ops import warp as wp
 
     dev = torch.device("cuda")
@@ -196,6 +223,33 @@ def phase_kernels():
             bwd_err=bwd_err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
         ))
+        # warp_impl="pallas": the forward without derivative planes and the
+        # re-gather backward, at the same points and cotangents
+        got_n = wp.warp_gather_nograd(src, ix, iy, odt)
+        err_n = max(max_err(got_n[0], want[0]), max_err(got_n[1], want[1]))
+        b_ms, b_by = bound(src.numel() * esz + 8 * n + 4 * n * osz,
+                           WARP_NOGRAD_FLOPS_PER_PIXEL * n, "float32")
+        rows.append(dict(
+            kernel="warp_gather_nograd", shape=f"{sdt}[16,{h},{w},3]->{str(odt)[6:]}",
+            per_step=per_step, max_abs_err=err_n, tol=tol, ok=err_n <= tol,
+            ms=cuda_ms(lambda: wp.warp_gather_nograd(src, ix, iy, odt), 20),
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        ))
+        bk = wp.warp_gather_backward(src, ix, iy, g_rgb, g_w)
+        bp = wp.warp_gather_backward_plain(src, ix, iy, g_rgb, g_w)
+        err_b = max(max_err(bk[0], bp[0]), max_err(bk[1], bp[1]))
+        only_w = wp.warp_gather_backward(src, ix, iy, None, g_w)
+        only_w_p = wp.warp_gather_backward_plain(src, ix, iy, None, g_w)
+        err_b = max(err_b, max_err(only_w[0], only_w_p[0]), max_err(only_w[1], only_w_p[1]))
+        b_ms, b_by = bound(src.numel() * esz + 8 * n + 4 * n * osz + 8 * n,
+                           WARP_BWD_FLOPS_PER_PIXEL * n, "float32")
+        rows.append(dict(
+            kernel="warp_gather_bwd", shape=f"{sdt}[16,{h},{w},3] g {str(odt)[6:]}",
+            per_step=per_step, max_abs_err=err_b, tol=1e-5 * scale, ok=err_b <= 1e-5 * scale,
+            ms=cuda_ms(lambda: wp.warp_gather_backward(src, ix, iy, g_rgb, g_w), 20),
+            plain_ms=cuda_ms(lambda: wp.warp_gather_backward_plain(src, ix, iy, g_rgb, g_w), 3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        ))
 
     # correlation: the five PWC levels of the 2B decoder batch, bf16
     levels = [(4, 13, 196), (8, 26, 128), (16, 52, 96), (32, 104, 64), (64, 208, 32)]
@@ -240,12 +294,93 @@ def phase_kernels():
                 plain_ms=cuda_ms(p_fn, 3) if name == "corr_fwd" else plain_bwd_ms,
                 library_ms=None, bound_ms=b_ms, bound_by=b_by,
             ))
+    # SSIM: the three loss scales of one warp direction (B = 8), bf16, and an
+    # f32 check. Images in [0, 1] that differ by noise, a third of the pixels
+    # zeroed in both (as the loss's mask products do). Value, both gradients,
+    # and the border ring (where the zero padding acts) on its own.
+    cases = [(256, 832, "bfloat16", 2), (128, 416, "bfloat16", 2), (64, 208, "bfloat16", 2),
+             (256, 832, "float32", 0)]
+    for h, w, dts, per_step in cases:
+        b, dt = 8, getattr(torch, dts)
+        x = torch.rand(b, h, w, 3, generator=gen)
+        y = (x + 0.2 * torch.randn(b, h, w, 3, generator=gen)).clamp(0, 1)
+        keep = (torch.rand(b, h, w, 1, generator=gen) > 0.33).float()
+        x, y = (x * keep).to(dev, dt), (y * keep).to(dev, dt)
+        g = torch.randn(b, h, w, 3, generator=gen).to(dev, dt)
+        s_k = ss.ssim_forward(x, y)
+        dx_k, dy_k = ss.ssim_backward(x, y, g)
+        s_p = ss.ssim_plain(x, y)
+        dx_p, dy_p = ss.ssim_backward_plain(x, y, g)
+        f32 = dt == torch.float32
+        # f32: the same sums in another order. bf16: the same bf16 inputs, f32
+        # intermediates on both sides, one bf16 rounding of the result.
+        tol_s = 1e-5 if f32 else 8e-3
+        gscale = max(dx_p.float().abs().max().item(), dy_p.float().abs().max().item(), 1.0)
+        tol_g = (1e-4 if f32 else 1e-2) * gscale
+        ring = torch.ones(h, w, dtype=torch.bool, device=dev)
+        ring[1:-1, 1:-1] = False
+        err_s = max_err(s_k, s_p)
+        err_g = max(max_err(dx_k, dx_p), max_err(dy_k, dy_p))
+        ring_s = max_err(s_k[:, ring], s_p[:, ring])
+        ring_g = max(max_err(dx_k[:, ring], dx_p[:, ring]), max_err(dy_k[:, ring], dy_p[:, ring]))
+        n = x.numel()
+        esz = x.element_size()
+        fb_ms, fb_by = bound(3 * n * esz, SSIM_FWD_FLOPS * n, "float32")
+        bb_ms, bb_by = bound(5 * n * esz, SSIM_BWD_FLOPS * n, "float32")
+        rows.append(dict(
+            kernel="ssim_fwd", shape=f"{dts}[8,{h},{w},3]", per_step=per_step,
+            max_abs_err=err_s, ring_err=ring_s, tol=tol_s, ok=err_s <= tol_s and ring_s <= tol_s,
+            ms=cuda_ms(lambda: ss.ssim_forward(x, y), 20),
+            plain_ms=cuda_ms(lambda: ss.ssim_plain(x, y), 3),
+            library_ms=None, bound_ms=fb_ms, bound_by=fb_by,
+        ))
+        rows.append(dict(
+            kernel="ssim_bwd", shape=f"{dts}[8,{h},{w},3]", per_step=per_step,
+            max_abs_err=err_g, ring_err=ring_g, tol=tol_g, ok=err_g <= tol_g and ring_g <= tol_g,
+            ms=cuda_ms(lambda: ss.ssim_backward(x, y, g), 20),
+            plain_ms=cuda_ms(lambda: ss.ssim_backward_plain(x, y, g), 3),
+            library_ms=None, bound_ms=bb_ms, bound_by=bb_by,
+        ))
+        del x, y, g, s_k, s_p, dx_k, dy_k, dx_p, dy_p
+
+    # splat: the four flow scales of one direction (B = 8), bf16 as on the
+    # path, flows of a few pixels; an f32 check; and a flow whose
+    # displacements pass 128 px and leave the frame on every side, where a
+    # windowed kernel would drop mass. The kernel's f32 atomics sum in an
+    # order that changes from run to run: 1e-5 of the largest mass in f32;
+    # bf16 adds the one rounding of the output.
+    cases = [(256, 832, "bfloat16", 2, False), (128, 416, "bfloat16", 2, False),
+             (64, 208, "bfloat16", 2, False), (32, 104, "bfloat16", 2, False),
+             (256, 832, "float32", 0, False), (256, 832, "float32", 0, True)]
+    for h, w, dts, per_step, far in cases:
+        b, dt = 8, getattr(torch, dts)
+        flow = 8.0 * torch.rand(b, h, w, 2, generator=gen) - 4.0
+        if far:
+            jump = torch.rand(b, h, w, 1, generator=gen) < 0.33
+            big = (3.0 * torch.rand(b, h, w, 2, generator=gen) - 1.5) * torch.tensor([w, h])
+            flow = torch.where(jump, big, flow)
+        flow = flow.to(dev, dt)
+        m_k = sp.splat_mass(flow)
+        m_p = sp.splat_mass_plain(flow)
+        scale = max(m_p.float().max().item(), 1.0)
+        tol = (1e-5 if dt == torch.float32 else 8e-3) * scale
+        err = max_err(m_k, m_p)
+        n = b * h * w
+        b_ms, b_by = bound(n * 2 * flow.element_size() + 8 * n, SPLAT_FLOPS_PER_PIXEL * n, "float32")
+        rows.append(dict(
+            kernel="splat_mass", shape=f"{dts}[8,{h},{w},2]" + (" >128px" if far else ""),
+            per_step=per_step, max_abs_err=err, tol=tol, ok=err <= tol and scale > 1.5,
+            ms=cuda_ms(lambda: sp.splat_mass(flow), 20),
+            plain_ms=cuda_ms(lambda: sp.splat_mass_plain(flow), 3),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+        ))
+
     torch.cuda.synchronize()
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump(rows, f, indent=1)
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        log(f"kernel {r['kernel']:13s} {r['shape']:32s} err {r['max_abs_err']:.3g} "
+        log(f"kernel {r['kernel']:18s} {r['shape']:34s} err {r['max_abs_err']:.3g} "
             f"(tol {r['tol']:.3g}) {'ok' if r['ok'] else 'MISMATCH'}  ms {r['ms']:.4f} "
             f"plain {r['plain_ms']:.4f} lib {lib} bound {r['bound_ms']:.4f} ({r['bound_by']})")
     bad = [f"{r['kernel']} {r['shape']}" for r in rows if not r["ok"]]
@@ -267,9 +402,14 @@ def _batch(b, h, w, dev, seed=0):
     return tuple(t.to(dev) for t in (images, tile(K_ms), tile(K_inv_ms)))
 
 
+NETS = {"flow": ("fpyramid", "pwc_model"), "depth": ("depth_net", "pose_net"),
+        "geom": ("depth_net", "pose_net", "fpyramid", "pwc_model")}
+
+
 def phase_parity():
-    """Kernels on the card vs plain versions on the CPU, through the whole
-    geom step at 64x128 b2 f32 (TF32 off), same weights and batch."""
+    """Kernels on the card vs plain versions on the CPU, through one whole
+    train step at 64x128 b2 f32 (TF32 off), same weights and batch: the geom
+    step under the default Config, a flow step ("splat") and a depth step."""
     import torch
 
     from unsupervised_depth_opticalflow_egomotion_torch.config import Config
@@ -277,50 +417,73 @@ def phase_parity():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Config(img_hw=(64, 128), batch_size=2, compute_dtype="float32", ssim_impl="xla")
-    res = {}
-    for dev in ("cpu", "cuda"):
-        model, opt = init_state(cfg, dev)
-        metrics = make_train_step(model, cfg, opt)(_batch(2, 64, 128, dev))
-        res[dev] = (
-            {k: float(v) for k, v in metrics.items()},
-            {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()},
-        )
-    (m_cpu, g_cpu), (m_gpu, g_gpu) = res["cpu"], res["cuda"]
-    # the tolerance of tests/test_torch_geom.py: 1e-3 relative + 1e-7 absolute
-    loss_ok = all(abs(m_gpu[k] - m_cpu[k]) <= 1e-3 * abs(m_cpu[k]) + 1e-7 for k in m_cpu)
-    worst_loss = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-7) for k in m_cpu)
-    worst_grad = 0.0
-    for net in ("depth_net", "pose_net", "fpyramid", "pwc_model"):
-        ks = [k for k in g_cpu if k.startswith(net + ".")]
-        a = torch.cat([g_gpu[k].flatten() for k in ks])
-        b = torch.cat([g_cpu[k].flatten() for k in ks])
-        worst_grad = max(worst_grad, ((a - b).norm() / b.norm()).item())
-    log(f"parity 64x128 f32 card vs cpu: loss rel err {worst_loss:.3g} (tol 1e-3 + 1e-7 abs), "
-        f"gradient rel L2 err {worst_grad:.3g} (tol 2e-2), loss_total {m_gpu['loss_total']:.6f}")
-    if not (loss_ok and worst_grad <= 2e-2):
-        fail("the card's geom step disagrees with the plain CPU step")
+    for kw in ({"mode": "geom"}, {"mode": "flow", "flow_occ_impl": "splat"}, {"mode": "depth"}):
+        cfg = Config(img_hw=(64, 128), batch_size=2, compute_dtype="float32", **kw)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            model, opt = init_state(cfg, dev)
+            metrics = make_train_step(model, cfg, opt)(_batch(2, 64, 128, dev))
+            res[dev] = (
+                {k: float(v) for k, v in metrics.items()},
+                {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()
+                 if p.grad is not None},
+            )
+        (m_cpu, g_cpu), (m_gpu, g_gpu) = res["cpu"], res["cuda"]
+        # the tolerance of tests/test_torch_geom.py: 1e-3 relative + 1e-7 absolute
+        loss_ok = all(abs(m_gpu[k] - m_cpu[k]) <= 1e-3 * abs(m_cpu[k]) + 1e-7 for k in m_cpu)
+        worst_loss = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-7) for k in m_cpu)
+        worst_grad = 0.0
+        for net in NETS[cfg.mode]:
+            ks = [k for k in g_cpu if k.startswith(net + ".")]
+            a = torch.cat([g_gpu[k].flatten() for k in ks])
+            b = torch.cat([g_cpu[k].flatten() for k in ks])
+            worst_grad = max(worst_grad, ((a - b).norm() / b.norm()).item())
+        same_nets = set(g_cpu) == set(g_gpu)
+        log(f"parity {cfg.mode} 64x128 f32 card vs cpu: loss rel err {worst_loss:.3g} "
+            f"(tol 1e-3 + 1e-7 abs), gradient rel L2 err {worst_grad:.3g} (tol 2e-2), "
+            f"loss_total {m_gpu['loss_total']:.6f}")
+        if not (loss_ok and worst_grad <= 2e-2 and same_nets):
+            fail(f"the card's {cfg.mode} step disagrees with the plain CPU step")
 
 
-def phase_train(smi: str):
+WATCH = {"depth_net": "depth_net.encoder.encoder.conv1.weight",
+         "pose_net": "pose_net.pose_conv.weight",
+         "fpyramid": "fpyramid.conv1.0.weight", "pwc_model": "pwc_model.predict_flow2.weight"}
+
+
+def _start(name, overrides):
+    """Model, optimizer and batch of Config(b8 256x832 bf16, **overrides) on
+    uint8 frames, on the default device (CUDA)."""
     import torch
 
     from unsupervised_depth_opticalflow_egomotion_torch.config import Config
     from unsupervised_depth_opticalflow_egomotion_torch.parallel import init_state, make_train_step
 
-    torch.backends.cudnn.benchmark = True
     b, h, w = 8, 256, 832
-    cfg = Config(img_hw=(h, w), batch_size=b, compute_dtype="bfloat16", ssim_impl="xla")
-    model, opt = init_state(cfg)  # the default device: CUDA
-    step = make_train_step(model, cfg, opt)
-    batch = _batch(b, h, w, torch.device("cuda"))
-    watch = {k: p.detach().clone() for k, p in model.named_parameters()
-             if k.endswith(("conv1.weight", "predict_flow2.weight", "pose_conv.weight"))}
-    kernels = path_kernels()
-    per_step = {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5}
-    warmup, timed = 3, 10
-    torch.cuda.reset_peak_memory_stats()
+    cfg = Config(img_hw=(h, w), batch_size=b, **overrides)
+    if cfg.compute_dtype != "bfloat16":
+        fail("the train phase expects the default compute_dtype, bfloat16")
+    model, opt = init_state(cfg)
+    return {
+        "name": name, "cfg": cfg, "model": model, "step": make_train_step(model, cfg, opt),
+        "batch": _batch(b, h, w, torch.device("cuda")),
+        "before": {k: p.detach().clone() for k, p in model.named_parameters()},
+    }
 
+
+def _drive(run, per_step, warmup, timed):
+    """``warmup + timed`` train steps of ``run``. The launch counts are zeroed
+    just before and read just after; checks finite losses, moved parameters
+    of the networks the mode trains, bit-equal parameters of the others, and
+    the exact launch count of every kernel (``per_step``: kernel -> launches
+    a step; the others must stay at zero). Returns (launches, ms per step or
+    None, peak GiB)."""
+    import torch
+
+    name, step, batch = run["name"], run["step"], run["batch"]
+    kernels = {n: k for n, (k, _) in path_kernels().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
     for _ in range(warmup):
@@ -331,35 +494,100 @@ def phase_train(smi: str):
         metrics = step(batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = {n: k.launches for n, k in kernels.items()}
 
     values = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in values.values()):
-        fail(f"non-finite losses: {values}")
-    moved = [k for k, v in watch.items() if not torch.equal(v, dict(model.named_parameters())[k])]
-    if len(moved) != len(watch):
-        fail(f"parameters did not move: {sorted(set(watch) - set(moved))}")
-    want = {n: c * (warmup + timed) for n, c in per_step.items()}
+        fail(f"{name}: non-finite losses: {values}")
+    before, after = run["before"], dict(run["model"].named_parameters())
+    trained = NETS[run["cfg"].mode]
+    still = [WATCH[n] for n in trained if torch.equal(before[WATCH[n]], after[WATCH[n]])]
+    if still:
+        fail(f"{name}: parameters did not move: {still}")
+    strayed = [k for k, v in before.items()
+               if not k.startswith(tuple(n + "." for n in trained)) and not torch.equal(v, after[k])]
+    if strayed:
+        fail(f"{name}: parameters of networks the mode does not train moved: {strayed[:5]}")
+    want = {n: per_step.get(n, 0) * (warmup + timed) for n in kernels}
     if launches != want:
-        fail(f"kernel launches {launches}, expected {want}")
-    fps = timed * b / dt
+        fail(f"{name}: kernel launches {launches}, expected {want}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    log(f"train: {timed} steps in {dt:.3f} s, {dt / timed * 1e3:.1f} ms/step, "
-        f"peak memory {peak_gb:.1f} GiB, losses {json.dumps(values)}")
+    ms = dt / timed * 1e3 if timed else None
+    timing = f"{timed} timed steps, {ms:.1f} ms/step, " if timed else ""
+    log(f"train {name}: {warmup + timed} steps, {timing}peak memory {peak_gb:.2f} GiB, "
+        f"launches/step {json.dumps(per_step)}, losses {json.dumps(values)}")
+    return launches, ms, peak_gb
+
+
+def _metric_line(metric, ms, smi):
+    import torch
+
     log(json.dumps({
-        "metric": "frames/sec joint depth+flow+pose fwd-bwd "
-        "(b8 256x832 bf16, ssim_impl=xla, PyTorch port)",
-        "value": round(fps, 2), "unit": "frames/s/chip",
+        "metric": metric, "value": round(8 / ms * 1e3, 2), "unit": "frames/s/chip",
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "ms_per_step": round(dt / timed * 1e3, 2),
+        "ms_per_step": round(ms, 2),
     }))
-    _profile(step, batch, dt / timed * 1e3)
-    return launches
 
 
-def _profile(step, batch, step_ms: float):
+def phase_train(smi: str):
+    """Every train path at full width. All timed runs come before the first
+    profile: profiling slows the host side of the steps that come after it.
+    The two geom configurations are timed in turns (default, xla, xla,
+    default) so that host drift within the call shows."""
+    import torch
+
+    torch.backends.cudnn.benchmark = True
+    corr = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5}
+    ssim = {"ssim_fwd": 6, "ssim_bwd": 6}
+    total = {}
+
+    def drive(run, per_step, warmup, timed):
+        launches, ms, peak = _drive(run, per_step, warmup, timed)
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        return ms, peak
+
+    geom_k = {"warp_gather": 6, **corr, **ssim}
+    xla_k = {"warp_gather": 6, **corr}
+    geom = _start("geom default", {})
+    xla = _start("geom ssim_impl=xla", {"ssim_impl": "xla"})
+    ms_g, gb_g = drive(geom, geom_k, 3, 10)
+    _metric_line("frames/sec joint depth+flow+pose fwd-bwd (b8 256x832 bf16, PyTorch port)",
+                 ms_g, smi)
+    ms_x, gb_x = drive(xla, xla_k, 3, 10)
+    ms_x2, _ = drive(xla, xla_k, 0, 5)
+    ms_g2, _ = drive(geom, geom_k, 0, 5)
+
+    flow_k = {"warp_gather": 4, **corr, **ssim, "splat_mass": 8}
+    flow = _start("flow splat", {"mode": "flow", "flow_occ_impl": "splat"})
+    ms_f, _ = drive(flow, flow_k, 3, 5)
+    _metric_line("frames/sec flow-mode fwd-bwd (b8 256x832 bf16, flow_occ_impl=splat, "
+                 "PyTorch port)", ms_f, smi)
+    for name, overrides, per_step in (
+        ("flow splat_nn", {"mode": "flow"}, {"warp_gather": 4, **corr, **ssim}),
+        ("depth", {"mode": "depth"}, {"warp_gather": 6}),
+        ("geom warp_impl=pallas pwc_corr=pallas", {"warp_impl": "pallas", "pwc_corr": "pallas"},
+         {"warp_gather_nograd": 6, "warp_gather_bwd": 6, "corr_fwd": 5, **ssim}),
+    ):
+        run = _start(name, overrides)
+        drive(run, per_step, 2, 0)
+        del run
+        torch.cuda.empty_cache()
+
+    dev_g, n_g = _profile(geom["name"], geom["step"], geom["batch"], ms_g, verbose=True)
+    dev_x, n_x = _profile(xla["name"], xla["step"], xla["batch"], ms_x, verbose=False)
+    _profile(flow["name"], flow["step"], flow["batch"], ms_f, verbose=True)
+    log(f"geom step, ssim_impl=pallas vs xla in this call: {ms_g:.1f} vs {ms_x:.1f} ms/step "
+        f"(10 timed steps each), then {ms_g2:.1f} vs {ms_x2:.1f} (5 each, in the other order); "
+        f"{n_g} vs {n_x} kernel launches/step, device time {dev_g:.1f} vs {dev_x:.1f} ms/step, "
+        f"peak memory {gb_g:.2f} vs {gb_x:.2f} GiB")
+    return total
+
+
+def _profile(name, step, batch, step_ms: float, verbose: bool):
     """Device time by kernel and by launching op over two profiled steps;
-    the busy share is the kernels' device time over the unprofiled step."""
+    the busy share is the kernels' device time over the unprofiled step.
+    Returns (device ms per step, kernel launches per step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -378,15 +606,24 @@ def _profile(step, batch, step_ms: float):
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+    n_launch = sum(e.count for e in kernels) // n
+    fname = "profile_" + "".join(c if c.isalnum() else "_" for c in name) + ".txt"
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=80))
-    log(f"profile: kernels {busy_ms:.1f} ms/step on the device, {busy_ms / step_ms:.1%} of the "
-        f"unprofiled {step_ms:.1f} ms step; {sum(e.count for e in kernels) // n} kernel launches/step")
+    log(f"profile {name}: kernels {busy_ms:.1f} ms/step on the device, {busy_ms / step_ms:.1%} "
+        f"of the unprofiled {step_ms:.1f} ms step; {n_launch} kernel launches/step")
+    ours = [e for e in kernels if any(
+        t in e.key for t in ("warp_gather", "corr_", "ssim_", "splat_mass"))]
+    log(f"  hand-written kernels: {sum(e.self_device_time_total for e in ours) / 1e3 / n:.2f} "
+        f"ms/step in {sum(e.count for e in ours) // n} launches")
+    if not verbose:
+        return busy_ms, n_launch
     for title, rows in (("ops by the device time of their kernels", ops[:12]),
-                        ("kernels", kernels[:8])):
+                        ("kernels", kernels[:10])):
         log(f"  {title}:")
         for e in rows:
             log(f"  {e.self_device_time_total / 1e3 / n:8.2f} ms/step  x{e.count // n:<5d} {e.key[:80]}")
+    return busy_ms, n_launch
 
 
 def main():
@@ -405,9 +642,11 @@ def main():
     launches = phase_train(smi)
 
     table = []
-    for name, kernel in path_kernels().items():
+    for name, (kernel, replaces) in path_kernels().items():
         on_path = [r for r in rows if r["kernel"] == name and r["per_step"]]
         mine = [r for r in rows if r["kernel"] == name]
+        if not on_path or launches[name] <= 0:
+            fail(f"kernel {name} was not launched on any train path")
 
         def per_step_sum(key):
             if any(r[key] is None for r in on_path):
@@ -416,21 +655,16 @@ def main():
 
         b_by = max(on_path, key=lambda r: r["bound_ms"] * r["per_step"])["bound_by"]
         table.append({
-            "name": name, "route": "cuda", "source": kernel.source,
-            "replaces": {
-                "warp_gather": "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/warp_window.py:166",
-                "corr_fwd": "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/correlation_fused.py:38",
-                "corr_bwd_df1": "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/correlation_fused.py:52",
-                "corr_bwd_df2": "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/correlation_fused.py:65",
-            }[name],
+            "name": name, "route": "cuda", "source": kernel.source, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": per_step_sum("ms"), "plain_ms": per_step_sum("plain_ms"),
             "bound_ms": per_step_sum("bound_ms"), "bound_by": b_by,
             "library_ms": per_step_sum("library_ms"),
         })
-    log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are per train step "
-        "(each shape times its launches per step)")
+    log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are per train step on the "
+        "path that launches the kernel (each shape times its launches per step); launches are "
+        "summed over the train runs")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -11,8 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from unsupervised_depth_opticalflow_egomotion_torch.config import Config
 from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume as tcv
+from unsupervised_depth_opticalflow_egomotion_torch.ops import splat as tsp
+from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as tss
 from unsupervised_depth_opticalflow_egomotion_torch.ops import warp as tw
+from unsupervised_depth_opticalflow_egomotion_torch.parallel import init_state, make_train_step
 
 pytestmark = [pytest.mark.kernels, pytest.mark.cuda]
 
@@ -107,6 +111,190 @@ def test_correlation_kernels_match_plain_on_card(cuda, dtype, tol):
         torch.testing.assert_close(x.float(), y.float(), atol=tol * max(scale, 1.0), rtol=0)
 
 
+@pytest.mark.parametrize(
+    "src_dtype,out_dtype,tol",
+    [
+        (torch.uint8, torch.float32, 1e-5),
+        (torch.uint8, torch.bfloat16, 8e-3),  # one bf16 rounding of values <= 1
+        (torch.bfloat16, torch.bfloat16, 8e-3),
+        (torch.float32, torch.float32, 1e-5),
+    ],
+)
+def test_warp_regather_kernels_match_plain_on_card(cuda, src_dtype, out_dtype, tol):
+    """The forward without derivative planes (rgb and weight sum, tol) and
+    the re-gather backward kernel (f32 dix, diy; 1e-4 relative to the largest
+    value: the same f32 products summed in another order) against their plain
+    versions, one launch each, with both cotangents, with one, and through
+    ``WarpRegather`` against ``WarpGather``."""
+    ix, iy = _coords(9)
+    rng = np.random.RandomState(10)
+    src = torch.from_numpy(rng.randint(0, 256, (B, H, W, 3), np.uint8))
+    if src_dtype != torch.uint8:
+        src = (src.float() / 255.0).to(src_dtype)
+    src = src.to(cuda)
+    ixt, iyt = torch.from_numpy(ix).to(cuda), torch.from_numpy(iy).to(cuda)
+    counts = [k.launches for k in (tw.WARP_GATHER, tw.WARP_GATHER_NOGRAD, tw.WARP_GATHER_BWD)]
+    got = tw.warp_gather_nograd(src, ixt, iyt, out_dtype)
+    want = tw.warp_gather_plain(src, ixt, iyt, out_dtype)
+    for g, w in zip(got, want[:2]):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=0)
+    g_rgb = torch.from_numpy(rng.randn(B, H, W, 3).astype(np.float32)).to(cuda, out_dtype)
+    g_w = torch.from_numpy(rng.randn(B, H, W, 1).astype(np.float32)).to(cuda, out_dtype)
+    for a, b in ((g_rgb, g_w), (g_rgb, None), (None, g_w)):
+        gk = tw.warp_gather_backward(src, ixt, iyt, a, b)
+        gp = tw.warp_gather_backward_plain(src, ixt, iyt, a, b)
+        for x, y in zip(gk, gp):
+            assert x.dtype == torch.float32
+            scale = max(y.abs().max().item(), 1.0)
+            torch.testing.assert_close(x, y, atol=1e-4 * scale, rtol=0)
+    torch.cuda.synchronize()
+    now = [k.launches for k in (tw.WARP_GATHER, tw.WARP_GATHER_NOGRAD, tw.WARP_GATHER_BWD)]
+    assert now == [counts[0], counts[1] + 1, counts[2] + 3]
+
+    grads = []
+    for fn in (tw.WarpRegather, tw.WarpGather):
+        a = ixt.clone().requires_grad_(True)
+        b = iyt.clone().requires_grad_(True)
+        rgb, wsum = fn.apply(src, a, b, out_dtype)
+        ((rgb * g_rgb).float().sum() + (wsum * g_w).float().sum()).backward()
+        grads.append((a.grad, b.grad))
+    for x, y in zip(*grads):
+        torch.testing.assert_close(x, y, atol=1e-4 * max(y.abs().max().item(), 1.0), rtol=0)
+
+
+def _ssim_inputs(shape, seed):
+    """Two images in [0, 1] that differ by noise, and a cotangent; a third of
+    the pixels are zeroed in both, as the loss's mask products do."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(*shape).astype(np.float32)
+    y = np.clip(x + 0.2 * rng.randn(*shape), 0, 1).astype(np.float32)
+    keep = (rng.rand(*shape[:3], 1) > 0.33).astype(np.float32)
+    g = rng.randn(*shape).astype(np.float32)
+    return x * keep, y * keep, g
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 53, 3), (1, 16, 128, 3), (2, 5, 3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssim_kernels_match_plain_on_card(cuda, shape, dtype):
+    """The SSIM map and both gradients of the closed-form backward against
+    their plain versions, odd sizes included, whole frame and border ring.
+
+    f32: 1e-5 on the map (values in [-1, 1]); gradients 1e-4 relative to the
+    largest value (they reach ~1e3 where both windows are nearly empty: the
+    denominator falls to C1 C2). bf16: inputs and cotangent are the same
+    bf16 values on both sides and every intermediate is f32, so the results
+    differ by one bf16 rounding: 8e-3 on the map, 1e-2 relative on gradients.
+    """
+    x, y, g = (torch.from_numpy(a).to(cuda, dtype) for a in _ssim_inputs(shape, 11))
+    counts = (tss.SSIM_FWD.launches, tss.SSIM_BWD.launches)
+    s = tss.ssim_forward(x, y)
+    dx, dy = tss.ssim_backward(x, y, g)
+    torch.cuda.synchronize()
+    assert (tss.SSIM_FWD.launches, tss.SSIM_BWD.launches) == (counts[0] + 1, counts[1] + 1)
+    assert s.dtype == dx.dtype == dy.dtype == dtype
+    ws = tss.ssim_plain(x, y)
+    wdx, wdy = tss.ssim_backward_plain(x, y, g)
+    f32 = dtype == torch.float32
+    ring = torch.ones(shape[1:3], dtype=torch.bool, device=cuda)
+    ring[1:-1, 1:-1] = False
+    for sel in (slice(None), ring):
+        torch.testing.assert_close(s.float()[:, sel], ws.float()[:, sel],
+                                   atol=1e-5 if f32 else 8e-3, rtol=0)
+        for got, want in ((dx, wdx), (dy, wdy)):
+            got, want = got.float()[:, sel], want.float()[:, sel]
+            scale = max(want.abs().max().item(), 1.0)
+            torch.testing.assert_close(got, want, atol=(1e-4 if f32 else 1e-2) * scale, rtol=0)
+
+    # through autograd: ssim(impl="pallas") on the card equals the closed form
+    xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    (tss.ssim(xr, yr, "pallas").float() * g.float()).sum().backward()
+    torch.testing.assert_close(xr.grad, dx)
+    torch.testing.assert_close(yr.grad, dy)
+
+
+def _splat_flow(b, h, w, seed, far):
+    """A flow of a few pixels; with ``far``, a third of the pixels move up
+    to 1.5 frame widths, so targets leave the frame on every side."""
+    rng = np.random.RandomState(seed)
+    flow = rng.uniform(-4, 4, (b, h, w, 2))
+    if far:
+        jump = rng.rand(b, h, w, 1) < 0.33
+        flow = np.where(jump, rng.uniform(-1.5, 1.5, (b, h, w, 2)) * [w, h], flow)
+    return flow.astype(np.float32)
+
+
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_splat_kernel_matches_plain_on_card(cuda, far, dtype):
+    """The mass [B,H,W,1] against the plain scatter, at an odd size. The
+    kernel sums f32 atomics in an order that changes from run to run: 1e-5
+    relative to the largest mass in f32; bf16 adds the output's one rounding
+    (8e-3 relative). Mass is conserved: what stays in frame sums equal."""
+    b, h, w = 2, 37, 53
+    flow = torch.from_numpy(_splat_flow(b, h, w, 12, far)).to(cuda, dtype)
+    if far:
+        t = flow.float() + tw.pixel_grid(h, w, device=cuda)[None]
+        assert (t[..., 0] < -1).any() and (t[..., 0] > w).any()
+        assert (t[..., 1] < -1).any() and (t[..., 1] > h).any()
+    before = tsp.SPLAT_MASS.launches
+    got = tsp.splat_mass(flow)
+    torch.cuda.synchronize()
+    assert tsp.SPLAT_MASS.launches == before + 1
+    want = tsp.splat_mass_plain(flow)
+    assert got.shape == (b, h, w, 1) and got.dtype == dtype
+    scale = max(want.float().max().item(), 1.0)
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol * scale, rtol=0)
+    mask = tsp.occlusion_mask_from_flow(flow, "bilinear")
+    assert tsp.SPLAT_MASS.launches == before + 2
+    assert mask.min() >= 0 and mask.max() <= 1 and not mask.requires_grad
+
+
+def _batch(b, h, w, dev):
+    rng = np.random.RandomState(0)
+    images = torch.from_numpy((rng.rand(b, 3 * h, w, 3) * 255).astype(np.uint8))
+    K = np.array([[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1]], np.float32)
+    K_ms = np.stack([np.diag([1 / 2**s, 1 / 2**s, 1.0]).astype(np.float32) @ K for s in range(3)])
+    K_inv_ms = np.stack([np.linalg.inv(k) for k in K_ms]).astype(np.float32)
+    tile = lambda x: torch.from_numpy(np.tile(x[None], (b, 1, 1, 1)))  # noqa: E731
+    return tuple(t.to(dev) for t in (images, tile(K_ms), tile(K_inv_ms)))
+
+
+@pytest.mark.parametrize(
+    "overrides,launched",
+    [
+        ({}, {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
+              "ssim_fwd": 6, "ssim_bwd": 6}),
+        ({"warp_impl": "pallas", "pwc_corr": "pallas", "ssim_impl": "xla"},
+         {"warp_gather_nograd": 6, "warp_gather_bwd": 6, "corr_fwd": 5}),
+        ({"mode": "flow", "flow_occ_impl": "splat"},
+         {"warp_gather": 4, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
+          "ssim_fwd": 6, "ssim_bwd": 6, "splat_mass": 8}),
+        ({"mode": "depth", "enable_depth_ssim": True},
+         {"warp_gather": 6, "ssim_fwd": 6, "ssim_bwd": 6}),
+    ],
+)
+def test_default_config_trains_on_card(cuda, overrides, launched):
+    """``init_state(Config(...))`` with the default kernel routing no longer
+    raises: one step at 64x128 b2 bf16 has finite losses and launches exactly
+    the kernels of its configuration (all others stay at zero)."""
+    kernels = {
+        "warp_gather": tw.WARP_GATHER, "warp_gather_nograd": tw.WARP_GATHER_NOGRAD,
+        "warp_gather_bwd": tw.WARP_GATHER_BWD, "corr_fwd": tcv.CORR_FWD,
+        "corr_bwd_df1": tcv.CORR_BWD_DF1, "corr_bwd_df2": tcv.CORR_BWD_DF2,
+        "ssim_fwd": tss.SSIM_FWD, "ssim_bwd": tss.SSIM_BWD, "splat_mass": tsp.SPLAT_MASS,
+    }
+    cfg = Config(img_hw=(64, 128), batch_size=2, **overrides)
+    assert cfg.compute_dtype == "bfloat16"
+    model, opt = init_state(cfg)
+    before = {n: k.launches for n, k in kernels.items()}
+    metrics = make_train_step(model, cfg, opt)(_batch(2, 64, 128, cuda))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v) for v in metrics.values())
+    got = {n: k.launches - before[n] for n, k in kernels.items()}
+    assert got == {n: launched.get(n, 0) for n in kernels}
+
+
 def test_cuda_tensor_never_takes_the_plain_version(cuda):
     """A CUDA tensor the kernel cannot take raises; it is not sent to the
     plain version."""
@@ -117,3 +305,11 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda):
     f = torch.zeros((1, 4, 4, 8), dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
         tcv.corr_forward(f, f, 4)
+    with pytest.raises(TypeError):
+        tw.warp_gather_nograd(src, ix, ix, torch.float32)
+    with pytest.raises(TypeError):
+        tss.ssim_forward(f, f)
+    with pytest.raises(TypeError):
+        tss.ssim_backward(f, f, f)
+    with pytest.raises(TypeError):
+        tsp.splat_mass(torch.zeros((1, 4, 4, 2), dtype=torch.float16, device=cuda))

@@ -3,7 +3,8 @@ the CPU.
 
 The port imports neither JAX nor the JAX package; its entry points default
 to CUDA and raise without it unless the caller passes ``device="cpu"``;
-what it has not ported yet raises rather than runs something else.
+what it has not ported yet raises rather than runs something else; every
+kernel-selecting ``Config`` value is validated.
 """
 
 import ast
@@ -111,15 +112,21 @@ def test_entry_points_default_to_cuda():
 
 
 def test_ssim_pallas_raises_for_cuda():
-    """ssim_impl='pallas' names a kernel not ported yet: plain SSIM on CPU
-    tensors, NotImplementedError (naming the roadmap) for CUDA."""
+    """ssim_impl='pallas' no longer raises for CUDA: it routes to the SSIM
+    kernel there and to the plain map on CPU tensors; 'xla' is the plain map
+    everywhere; an unknown name raises, also when the model is built."""
     assert ssim_route("pallas", torch.device("cpu")) == "plain"
     assert ssim_route("xla", torch.device("cuda")) == "plain"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ssim_route("pallas", torch.device("cuda"))
+    assert ssim_route("pallas", torch.device("cuda")) == "kernel"
     with pytest.raises(ValueError):
         ssim_route("fused", torch.device("cpu"))
+    with pytest.raises(ValueError):
+        JointModel(_cfg(ssim_impl="fused"))
     build_model(_cfg(ssim_impl="pallas"), "cpu")
+    src = "".join(f.read_text() for f in sorted(PKG.rglob("*.py")))
+    assert "NotImplementedError" in src and "ssim_impl" in src
+    for line in src.splitlines():
+        assert not ("NotImplementedError" in line and "ssim" in line), line
 
 
 @pytest.mark.parametrize(
@@ -139,22 +146,60 @@ def test_unported_options_raise(flag):
 
 
 def test_unported_modes_raise():
-    model = JointModel(_cfg())
-    for fn in (model.forward_flow, model.forward_depth):
+    """All three modes build; an unknown mode or kernel-selecting value
+    raises ValueError; what a mode has not ported raises
+    NotImplementedError (depth consistency in geom mode, the loss base
+    scale in every mode)."""
+    for mode in ("flow", "depth", "geom"):
+        assert build_model(_cfg(mode=mode), "cpu").cfg.mode == mode
+    JointModel(_cfg(mode="depth", enable_depth_consis=True))
+    for bad in (
+        {"mode": "stereo"}, {"flow_occ_impl": "splat_cuda"}, {"warp_impl": "windowed"},
+        {"pwc_corr": "cudnn"},
+    ):
+        with pytest.raises(ValueError):
+            JointModel(_cfg(**bad))
+    for mode in ("flow", "depth"):
         with pytest.raises(NotImplementedError):
-            fn(None, None, None)
+            JointModel(_cfg(mode=mode, loss_base_scale=1))
     with pytest.raises(NotImplementedError):
-        build_model(_cfg(mode="flow"), "cpu")
+        JointModel(_cfg(mode="geom", enable_depth_consis=True))
 
 
 def test_kernel_sources_and_counters():
-    assert cuda_lib.sources() == ["correlation", "warp_gather"]
-    from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume, warp
+    assert cuda_lib.sources() == ["correlation", "splat", "ssim", "warp_gather"]
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume, splat, ssim, warp
 
-    kernels = (warp.WARP_GATHER, cost_volume.CORR_FWD, cost_volume.CORR_BWD_DF1,
-               cost_volume.CORR_BWD_DF2)
+    kernels = (warp.WARP_GATHER, warp.WARP_GATHER_NOGRAD, warp.WARP_GATHER_BWD,
+               cost_volume.CORR_FWD, cost_volume.CORR_BWD_DF1, cost_volume.CORR_BWD_DF2,
+               ssim.SSIM_FWD, ssim.SSIM_BWD, splat.SPLAT_MASS)
+    assert len({(k.library, k.symbol) for k in kernels}) == 9
     assert all(isinstance(k.launches, int) for k in kernels)
     assert all((REPO / k.source).is_file() for k in kernels)
+    for k in kernels:  # every C entry is defined in its source
+        assert f'extern "C" int {k.symbol}(' in (REPO / k.source).read_text(), k.symbol
+
+
+@pytest.mark.parametrize("mode", ["flow", "depth"])
+def test_train_step_modes_on_cpu(mode):
+    """Two steps in flow and depth mode with the global-norm clip: finite
+    losses, the mode's networks move, the others stay bit-equal."""
+    cfg = _cfg(mode=mode, grad_clip_norm=1.0, ssim_impl="pallas", flow_occ_impl="splat")
+    model, opt = init_state(cfg, "cpu")
+    step = make_train_step(model, cfg, opt)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    for _ in range(2):
+        metrics = step(_batch())
+        assert all(torch.isfinite(v) for v in metrics.values())
+    after = model.state_dict()
+    moved = {k for k in before if not torch.equal(before[k], after[k])}
+    flow = {k for k in before if k.startswith(("pwc_model.", "fpyramid."))}
+    if mode == "flow":
+        assert flow <= moved and moved <= flow
+    else:
+        assert not flow & moved
+        assert {"depth_net.encoder.encoder.conv1.weight", "pose_net.pose_conv.weight",
+                "depth_net.encoder.encoder.bn1.running_var"} <= moved
 
 
 def _batch(b=2):

@@ -3,9 +3,27 @@
 The PyTorch port's own copy of the JAX package's ``config/config.py`` (the
 port imports nothing of the JAX package): same fields, same defaults, same
 YAML presets. Field comments that cite TPU measurements describe the JAX
-package; on the card the port accepts ``warp_impl``, ``warp_bf16``,
-``warp_guard`` and ``pwc_corr`` and routes every data-source warp and every
-cost volume to its CUDA kernel regardless (ops/warp.py, ops/cost_volume.py).
+package. What the kernel-selecting fields run in this port, on a CUDA tensor
+(on a CPU tensor every kernel wrapper runs its plain PyTorch version):
+
+- ``ssim_impl``: "pallas" (default) = the SSIM forward and closed-form
+  backward kernels (csrc/ssim.cu) at every scale; "xla" = the plain map under
+  autograd.
+- ``warp_impl``, for 3-channel data sources: "pallas_fused" (default) = the
+  warp gather that also writes its derivative planes, elementwise backward;
+  "pallas" = the gather without planes and the re-gather backward kernel
+  (csrc/warp_gather.cu); "xla" = the plain sampler. ``warp_bf16=False``
+  sends float data sources to the plain sampler and keeps the kernel for
+  uint8 ones. ``warp_guard`` is accepted and has nothing to guard: the
+  gathers and the splat scatter are exact at any displacement.
+- ``pwc_corr``: "fused" (default) = the cost-volume forward and both
+  backward kernels (csrc/correlation.cu); "pallas" = the forward kernel with
+  the plain backward; "xla" = the plain cost volume.
+- ``flow_occ_impl`` (flow mode): "splat" = the forward-splat kernel
+  (csrc/splat.cu); "splat_xla", "splat_nn" (default), "splat_nn_half" and
+  "diff_weights" are plain PyTorch on every device, as the JAX package keeps
+  them outside its kernels.
+
 Loss-weight mapping mirrors the reference's config_utils.py:3-22.
 """
 

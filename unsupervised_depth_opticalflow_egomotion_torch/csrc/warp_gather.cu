@@ -1,11 +1,15 @@
-// Bilinear warp gather of a 3-channel image, with the analytic coordinate
-// derivatives fused into the forward.
+// Bilinear warp gather of a 3-channel image: the forward with the analytic
+// coordinate derivatives fused in (warp_gather), the forward without them
+// (warp_gather_nograd) and the coordinate backward that re-gathers the taps
+// (warp_gather_bwd).
 //
 // Replaces: unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/
-//   warp_window.py:_fwd_kernel (with_grads=True, reached through
-//   _warp_u8_fused_fwd; public entries warp_gather_u8rgb / warp_gather_bf16x3)
-//   and, with the derivative planes ignored, the same kernel under
-//   with_grads=False (_warp_u8_fwd).
+//   warp_window.py:_fwd_kernel with with_grads=True (reached through
+//   _warp_u8_fused_fwd) -> warp_gather; the same body with with_grads=False
+//   (reached through _warp_u8_fwd) -> warp_gather_nograd;
+//   warp_window.py:_bwd_kernel (reached through _warp_u8_bwd) ->
+//   warp_gather_bwd. Public entries there: warp_gather_u8rgb /
+//   warp_gather_bf16x3 with fused=True / fused=False.
 //
 // What it computes, per output pixel p = (b, y, x) with source position
 // (ix[p], iy[p]) in pixels: the zeros-padded bilinear sample of src[b] in
@@ -27,6 +31,13 @@
 // lines already fetched, and the kernel is exact at any displacement (no
 // window, hence no guard). Coordinate, output and derivative traffic is
 // coalesced.
+//
+// The two routes trade bytes for a second gather. warp_gather writes 24
+// bytes of derivative planes per pixel that its elementwise backward reads
+// again. warp_gather_nograd writes none; warp_gather_bwd then recomputes the
+// tap weights from the coordinates, gathers the same 12 taps again and
+// contracts them with the cotangents in registers: it reads the source, the
+// coordinates and 3+1 cotangents and writes two f32 planes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +80,7 @@ __device__ __forceinline__ Taps pos_weights(float i, int size) {
   return t;
 }
 
-template <typename TS, typename TO>
+template <typename TS, typename TO, bool WITH_GRADS>
 __global__ void warp_gather_kernel(const TS* __restrict__ src,
                                    const float* __restrict__ ix,
                                    const float* __restrict__ iy,
@@ -98,13 +109,58 @@ __global__ void warp_gather_kernel(const TS* __restrict__ src,
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     rgb[p * 3 + c] = from_f<TO>(v[c] * scale);
-    dplanes[p * 6 + c] = dx[c] * scale;
-    dplanes[p * 6 + 3 + c] = dy[c] * scale;
+    if (WITH_GRADS) {
+      dplanes[p * 6 + c] = dx[c] * scale;
+      dplanes[p * 6 + 3 + c] = dy[c] * scale;
+    }
   }
   wsum[p] = from_f<TO>((ty.w0 + ty.w1) * (tx.w0 + tx.w1));
 }
 
-template <typename TS, typename TO>
+// Coordinate backward by re-gathering: d/dix, d/diy of sum(g_rgb * rgb) +
+// g_w * wsum. Either cotangent may be absent (a null pointer). The 1/255 of
+// a uint8 source scales the rgb part only.
+template <typename TS, typename TG>
+__global__ void warp_gather_bwd_kernel(const TS* __restrict__ src,
+                                       const float* __restrict__ ix,
+                                       const float* __restrict__ iy,
+                                       const TG* __restrict__ g_rgb,
+                                       const TG* __restrict__ g_w,
+                                       float* __restrict__ dix, float* __restrict__ diy,
+                                       int H, int W, long long hw_out, long long n,
+                                       float scale) {
+  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const long long b = p / hw_out;
+  const Taps tx = pos_weights(ix[p], W);
+  const Taps ty = pos_weights(iy[p], H);
+  float gx = 0.f, gy = 0.f;
+  if (g_rgb != nullptr) {
+    const TS* r0 = src + ((b * H + ty.start) * (long long)W + tx.start) * 3;
+    const TS* r1 = r0 + (long long)W * 3;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float a00 = to_f(r0[c]), a01 = to_f(r0[3 + c]);
+      const float a10 = to_f(r1[c]), a11 = to_f(r1[3 + c]);
+      const float g = to_f(g_rgb[p * 3 + c]);
+      gx += g * (ty.w0 * (tx.dw0 * a00 + tx.dw1 * a01) +
+                 ty.w1 * (tx.dw0 * a10 + tx.dw1 * a11));
+      gy += g * (ty.dw0 * (tx.w0 * a00 + tx.w1 * a01) +
+                 ty.dw1 * (tx.w0 * a10 + tx.w1 * a11));
+    }
+    gx *= scale;
+    gy *= scale;
+  }
+  if (g_w != nullptr) {
+    const float gw = to_f(g_w[p]);
+    gx += gw * (ty.w0 + ty.w1) * (tx.dw0 + tx.dw1);
+    gy += gw * (ty.dw0 + ty.dw1) * (tx.w0 + tx.w1);
+  }
+  dix[p] = gx;
+  diy[p] = gy;
+}
+
+template <typename TS, typename TO, bool WITH_GRADS>
 static void launch(const void* src, const void* ix, const void* iy, void* rgb,
                    void* wsum, void* dplanes, int B, int H, int W, int Ho,
                    int Wo, float scale, cudaStream_t stream) {
@@ -112,9 +168,32 @@ static void launch(const void* src, const void* ix, const void* iy, void* rgb,
   const long long n = (long long)B * hw_out;
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
-  warp_gather_kernel<TS, TO><<<(unsigned)blocks, threads, 0, stream>>>(
+  warp_gather_kernel<TS, TO, WITH_GRADS><<<(unsigned)blocks, threads, 0, stream>>>(
       (const TS*)src, (const float*)ix, (const float*)iy, (TO*)rgb, (TO*)wsum,
       (float*)dplanes, H, W, hw_out, n, scale);
+}
+
+template <bool WITH_GRADS>
+static int dispatch(const void* src, int src_dtype, const void* ix, const void* iy,
+                    void* rgb, void* wsum, void* dplanes, int out_dtype, int B, int H,
+                    int W, int Ho, int Wo, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if ((long long)B * Ho * Wo == 0) return (int)cudaGetLastError();
+  if (H < 2 || W < 2) return (int)cudaErrorInvalidValue;
+  const float scale = src_dtype == kU8 ? 1.0f / 255.0f : 1.0f;
+  if (src_dtype == kU8 && out_dtype == kBF16)
+    launch<uint8_t, __nv_bfloat16, WITH_GRADS>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
+  else if (src_dtype == kU8 && out_dtype == kF32)
+    launch<uint8_t, float, WITH_GRADS>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
+  else if (src_dtype == kBF16 && out_dtype == kBF16)
+    launch<__nv_bfloat16, __nv_bfloat16, WITH_GRADS>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
+  else if (src_dtype == kBF16 && out_dtype == kF32)
+    launch<__nv_bfloat16, float, WITH_GRADS>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
+  else if (src_dtype == kF32 && out_dtype == kF32)
+    launch<float, float, WITH_GRADS>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 // src [B,H,W,3] (uint8 | bf16 | f32), ix/iy f32 [B,Ho,Wo] -> rgb [B,Ho,Wo,3]
@@ -124,21 +203,50 @@ extern "C" int warp_gather(const void* src, int src_dtype, const void* ix,
                            const void* iy, void* rgb, void* wsum, void* dplanes,
                            int out_dtype, int B, int H, int W, int Ho, int Wo,
                            void* stream) {
+  return dispatch<true>(src, src_dtype, ix, iy, rgb, wsum, dplanes, out_dtype, B, H, W,
+                        Ho, Wo, stream);
+}
+
+// The same forward without the derivative planes: rgb and wsum only.
+extern "C" int warp_gather_nograd(const void* src, int src_dtype, const void* ix,
+                                  const void* iy, void* rgb, void* wsum, int out_dtype,
+                                  int B, int H, int W, int Ho, int Wo, void* stream) {
+  return dispatch<false>(src, src_dtype, ix, iy, rgb, wsum, nullptr, out_dtype, B, H, W,
+                         Ho, Wo, stream);
+}
+
+template <typename TS, typename TG>
+static void launch_bwd(const void* src, const void* ix, const void* iy, const void* g_rgb,
+                       const void* g_w, void* dix, void* diy, int B, int H, int W, int Ho,
+                       int Wo, float scale, cudaStream_t stream) {
+  const long long hw_out = (long long)Ho * Wo;
+  const long long n = (long long)B * hw_out;
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  warp_gather_bwd_kernel<TS, TG><<<(unsigned)blocks, threads, 0, stream>>>(
+      (const TS*)src, (const float*)ix, (const float*)iy, (const TG*)g_rgb,
+      (const TG*)g_w, (float*)dix, (float*)diy, H, W, hw_out, n, scale);
+}
+
+// src and ix/iy as above; g_rgb [B,Ho,Wo,3] and g_w [B,Ho,Wo,1] in g_dtype
+// (bf16 | f32), either may be null -> dix, diy f32 [B,Ho,Wo]. Returns
+// cudaGetLastError().
+extern "C" int warp_gather_bwd(const void* src, int src_dtype, const void* ix,
+                               const void* iy, const void* g_rgb, const void* g_w,
+                               int g_dtype, void* dix, void* diy, int B, int H, int W,
+                               int Ho, int Wo, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if ((long long)B * Ho * Wo == 0) return (int)cudaGetLastError();
   if (H < 2 || W < 2) return (int)cudaErrorInvalidValue;
   const float scale = src_dtype == kU8 ? 1.0f / 255.0f : 1.0f;
-  if (src_dtype == kU8 && out_dtype == kBF16)
-    launch<uint8_t, __nv_bfloat16>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
-  else if (src_dtype == kU8 && out_dtype == kF32)
-    launch<uint8_t, float>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
-  else if (src_dtype == kBF16 && out_dtype == kBF16)
-    launch<__nv_bfloat16, __nv_bfloat16>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
-  else if (src_dtype == kBF16 && out_dtype == kF32)
-    launch<__nv_bfloat16, float>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
-  else if (src_dtype == kF32 && out_dtype == kF32)
-    launch<float, float>(src, ix, iy, rgb, wsum, dplanes, B, H, W, Ho, Wo, scale, s);
-  else
-    return (int)cudaErrorInvalidValue;
+#define BWD(TS, TG) \
+  launch_bwd<TS, TG>(src, ix, iy, g_rgb, g_w, dix, diy, B, H, W, Ho, Wo, scale, s)
+  if (src_dtype == kU8 && g_dtype == kBF16) BWD(uint8_t, __nv_bfloat16);
+  else if (src_dtype == kU8 && g_dtype == kF32) BWD(uint8_t, float);
+  else if (src_dtype == kBF16 && g_dtype == kBF16) BWD(__nv_bfloat16, __nv_bfloat16);
+  else if (src_dtype == kBF16 && g_dtype == kF32) BWD(__nv_bfloat16, float);
+  else if (src_dtype == kF32 && g_dtype == kF32) BWD(float, float);
+  else return (int)cudaErrorInvalidValue;
+#undef BWD
   return (int)cudaGetLastError();
 }

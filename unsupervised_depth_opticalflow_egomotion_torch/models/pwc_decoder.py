@@ -7,9 +7,10 @@ Port of the JAX package's ``models/pwc_decoder.py``:
   context:    dilated conv chain (1,2,4,8,16,1) refining flow2
 Outputs 4 flows at [H,W], [H/2,W/2], [H/4,W/4], [H/8,W/8] (x4 scaling).
 
-Every cost volume goes to the correlation kernel (ops/cost_volume.py); the
-``corr_impl`` names of the JAX package are accepted and route the same way.
-The feature warp samples float activations and needs a gradient to the
+Every cost volume goes through ``ops/cost_volume.correlation`` under
+``corr_impl`` (``Config.pwc_corr``): "fused" = the forward and backward
+kernels, "pallas" = the forward kernel with the plain backward, "xla" = the
+plain version. The feature warp samples float activations and needs a gradient to the
 source, so it runs the plain sampler (ops/warp.py), as the JAX package
 keeps it on XLA. State_dict names ``conv<l>_<j>.0``, ``predict_flow<l>``,
 ``dc_conv<k>`` follow the reference.
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..ops.cost_volume import correlation
+from ..ops.cost_volume import CORR_IMPLS, correlation
 from ..ops.interp import resize_bilinear, upsample2x_bilinear
 from ..ops.warp import warp_flow
 from .layers import Conv, conv_lrelu
@@ -33,9 +34,10 @@ _CONTEXT = ((128, 1), (128, 2), (128, 4), (96, 8), (64, 16), (32, 1))
 class PWCDecoder(nn.Module):
     def __init__(self, md=4, corr_impl="fused", dtype=torch.float32):
         super().__init__()
-        if corr_impl not in ("fused", "pallas", "xla"):
+        if corr_impl not in CORR_IMPLS:
             raise ValueError(f"unknown corr_impl {corr_impl!r}")
         self.md = md
+        self.corr_impl = corr_impl
         nd = (2 * md + 1) ** 2
         for lvl in (6, 5, 4, 3, 2):
             cin = nd if lvl == 6 else nd + _FEAT_CH[lvl] + 2
@@ -64,14 +66,14 @@ class PWCDecoder(nn.Module):
         if h % 64 or w % 64:
             raise ValueError(f"PWC levels need H, W divisible by 64; got {img_hw}")
         md = self.md
-        flow, _ = self._dense(6, correlation(feats1[5], feats2[5], md))
+        flow, _ = self._dense(6, correlation(feats1[5], feats2[5], md, self.corr_impl))
         flows = {6: flow}
         x4 = None
         for lvl in (5, 4, 3, 2):
             up_flow = upsample2x_bilinear(flows[lvl + 1]) * 2.0
             feat1, feat2 = feats1[lvl - 1], feats2[lvl - 1]
             warped = warp_flow(feat2, up_flow, use_mask=False)
-            corr = correlation(feat1, warped, md)
+            corr = correlation(feat1, warped, md, self.corr_impl)
             flow, x4 = self._dense(lvl, torch.cat([corr, feat1, up_flow], -1))
             flows[lvl] = flow + up_flow
         x = torch.cat([flows[2], x4], -1)

@@ -1,14 +1,21 @@
 """PWC correlation cost volume (NHWC), and its CUDA kernels.
 
-Port of the JAX package's ``ops/cost_volume.py`` and of the fused Pallas
-kernels in ``ops/pallas/correlation_fused.py``. Entry (i, j) of the last
-dim is mean_c f1[y, x, c] * f2[y + i - md, x + j - md, c] with zero padding
-outside f2, row-major over (i, j) (the reference's pwc_tf.py:97-106).
+Port of the JAX package's ``ops/cost_volume.py`` and of the Pallas kernels
+in ``ops/pallas/correlation_fused.py`` and ``ops/pallas/correlation.py``.
+Entry (i, j) of the last dim is mean_c f1[y, x, c] * f2[y + i - md,
+x + j - md, c] with zero padding outside f2, row-major over (i, j) (the
+reference's pwc_tf.py:97-106).
 
 ``correlation`` is the autograd entry used by the PWC decoder at every
-level. On CUDA tensors its forward and backward launch
-csrc/correlation.cu (``CORR_FWD``, ``CORR_BWD_DF1``, ``CORR_BWD_DF2``); on
-CPU tensors they run the plain versions below.
+level; ``impl`` is ``Config.pwc_corr``:
+
+- "fused" (the default): on CUDA tensors the forward and the backward launch
+  csrc/correlation.cu (``CORR_FWD``, ``CORR_BWD_DF1``, ``CORR_BWD_DF2``); on
+  CPU tensors they run the plain versions below.
+- "pallas": the forward kernel (``CORR_FWD``) with the plain 81-shift
+  backward, as the JAX package's ``correlation_pallas`` has a forward kernel
+  and an XLA backward.
+- "xla": ``correlation_plain`` under autograd on every device.
 """
 
 from __future__ import annotations
@@ -122,6 +129,32 @@ class Correlation(torch.autograd.Function):
         return df1, df2, None
 
 
-def correlation(f1: torch.Tensor, f2: torch.Tensor, md: int = 4) -> torch.Tensor:
-    """NHWC cost volume [B,H,W,(2md+1)^2] with the kernel forward/backward."""
-    return Correlation.apply(f1.contiguous(), f2.contiguous(), md)
+class CorrelationPlainBackward(torch.autograd.Function):
+    """Cost volume with the kernel forward and the plain 81-shift backward."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, md):
+        ctx.save_for_backward(f1, f2)
+        ctx.md = md
+        return corr_forward(f1, f2, md)
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        df1, df2 = correlation_backward_plain(g, f1, f2, ctx.md)
+        return df1, df2, None
+
+
+CORR_IMPLS = ("fused", "pallas", "xla")
+
+
+def correlation(
+    f1: torch.Tensor, f2: torch.Tensor, md: int = 4, impl: str = "fused"
+) -> torch.Tensor:
+    """NHWC cost volume [B,H,W,(2md+1)^2] under ``Config.pwc_corr`` routing."""
+    if impl not in CORR_IMPLS:
+        raise ValueError(f"pwc_corr must be one of {CORR_IMPLS}, got {impl!r}")
+    if impl == "xla":
+        return correlation_plain(f1, f2, md)
+    fn = Correlation if impl == "fused" else CorrelationPlainBackward
+    return fn.apply(f1.contiguous(), f2.contiguous(), md)

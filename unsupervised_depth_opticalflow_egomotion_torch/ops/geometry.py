@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .warp import pixel_grid
+from .warp import DEFAULT_ROUTE, WarpRoute, grid_sample, pixel_grid
 
 
 def euler2mat(angle: torch.Tensor) -> torch.Tensor:
@@ -97,6 +97,38 @@ def rigid_projection(depth, pose, intrinsics):
     valid = (coords.abs().amax(dim=-1) <= 1.0).float()[..., None]
     rigid = torch.stack([xp, yp], dim=-1) - pixel_grid(h, w, device=depth.device)[None]
     return coords, valid, z[..., None], rigid
+
+
+def rigid_sample_coords(depth, pose, intrinsics):
+    """The projection half of ``inverse_warp2``: (coords [B,H,W,2], valid
+    [B,H,W,1] f32, computed_depth [B,H,W,1])."""
+    coords, valid, computed_depth, _ = rigid_projection(depth, pose, intrinsics)
+    return coords, valid, computed_depth
+
+
+def inverse_warp2(
+    img, depth, ref_depth, pose, intrinsics, sample_ref_depth: bool = True,
+    route: WarpRoute = DEFAULT_ROUTE,
+):
+    """Depth+pose inverse warp of a source image onto the target plane.
+
+    ``img`` [B,H,W,3] is the source frame, ``depth`` the target depth and
+    ``ref_depth`` the source depth [B,H,W,1], ``pose`` [B,6] target->source.
+    Returns (projected_img, valid_mask [B,H,W,1], projected_depth (>= 1e-3,
+    or None without ``sample_ref_depth``), computed_depth).
+    """
+    coords, valid, computed_depth = rigid_sample_coords(depth, pose, intrinsics)
+    valid = valid.to(img.dtype)
+    if not sample_ref_depth:
+        # img is a camera frame by contract: the data-source kernels apply
+        projected_img = grid_sample(img, coords, src_is_data=True, route=route)
+        return projected_img, valid, None, computed_depth
+    # img and ref_depth are sampled at the same coords as one 4-channel
+    # source; ref_depth is network output and needs a gradient to the source,
+    # so this is the plain sampler, never the kernel
+    sampled = grid_sample(torch.cat([img, ref_depth.to(img.dtype)], dim=-1), coords)
+    projected_depth = torch.clamp(sampled[..., 3:], min=1e-3)
+    return sampled[..., :3], valid, projected_depth, computed_depth
 
 
 def skew_symmetric(t: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,16 @@ def photometric_loss(imgs, warped, masks) -> torch.Tensor:
     return _sum_scales(per_scale)
 
 
+def masked_diff_loss(diffs, masks) -> torch.Tensor:
+    """Masked mean of precomputed residuals (the flow-only objective under
+    ``flow_occ_impl="diff_weights"``)."""
+    per_scale = []
+    for diff, mask in zip(diffs, masks):
+        divider = _bmean(mask)
+        per_scale.append(_bmean(diff * mask) / (divider + 1e-12))
+    return _sum_scales(per_scale)
+
+
 def ssim_loss(imgs, warped, masks, impl: str = "xla") -> torch.Tensor:
     """Masked DSSIM: SSIM computed on mask-multiplied images."""
     per_scale = []
@@ -100,6 +110,16 @@ def flow_consis_loss(fwd_flows, bwd_flows, occ_masks) -> torch.Tensor:
         mask = 1.0 - occ
         divider = _bmean(mask)
         per_scale.append(_bmean(abs_(fwd_n + bwd_n) * mask) / (divider + 1e-12))
+    return _sum_scales(per_scale)
+
+
+def depth_consis_loss(predicted_depths, computed_depths, masks) -> torch.Tensor:
+    """Scale-consistent depth loss |c-p|/(c+p), clamped to [0, 1]."""
+    per_scale = []
+    for pred, comp, mask in zip(predicted_depths, computed_depths, masks):
+        divider = _bmean(mask)
+        diff = torch.clamp(abs_(comp - pred) / abs_(comp + pred), 0.0, 1.0)
+        per_scale.append(_bmean(diff * mask) / (divider + 1e-12))
     return _sum_scales(per_scale)
 
 

@@ -33,7 +33,7 @@ def flow_normalization(flow: torch.Tensor) -> torch.Tensor:
     return (f32 / (n + 1e-12)).to(flow.dtype)
 
 
-def _all_zero(x: torch.Tensor) -> torch.Tensor:
+def all_zero(x: torch.Tensor) -> torch.Tensor:
     return (x == 0).all(dim=-1, keepdim=True)
 
 
@@ -47,8 +47,8 @@ def occlusion_weights(warped_from_l, imgs, warped_from_r):
     """
     weight_bwd, weight_fwd, valid_bwd, valid_fwd = [], [], [], []
     for img_from_l, img, img_from_r in zip(warped_from_l, imgs, warped_from_r):
-        valid_fwd.append(1.0 - _all_zero(img_from_r).to(img.dtype))
-        valid_bwd.append(1.0 - _all_zero(img_from_l).to(img.dtype))
+        valid_fwd.append(1.0 - all_zero(img_from_r).to(img.dtype))
+        valid_bwd.append(1.0 - all_zero(img_from_l).to(img.dtype))
         diff_l = (img - img_from_l).abs().mean(-1, keepdim=True)
         diff_r = (img - img_from_r).abs().mean(-1, keepdim=True)
         weight = 1.0 - torch.softmax(torch.cat([diff_l, diff_r], -1), dim=-1)
@@ -56,6 +56,30 @@ def occlusion_weights(warped_from_l, imgs, warped_from_r):
         weight_bwd.append(weight[..., 0:1])
         weight_fwd.append(weight[..., 1:2])
     return weight_bwd, weight_fwd, valid_bwd, valid_fwd
+
+
+def diff_weights(warped_from_l, imgs, warped_from_r):
+    """Soft occlusion weights of the reference's flow-only mode
+    (``flow_occ_impl="diff_weights"``).
+
+    weight = 2*exp(-(w-0.5)^2/0.03) * valid, where w = 1 - softmax over the
+    (left-diff, right-diff) pair, detached. Returns (diff_bwd, diff_fwd,
+    weight_bwd, weight_fwd) pyramids; the diffs are channel-mean photometric
+    residuals and carry a gradient.
+    """
+    diff_bwd, diff_fwd, weight_bwd, weight_fwd = [], [], [], []
+    for img_from_l, img, img_from_r in zip(warped_from_l, imgs, warped_from_r):
+        valid_fwd = 1.0 - all_zero(img_from_r).to(img.dtype)
+        valid_bwd = 1.0 - all_zero(img_from_l).to(img.dtype)
+        diff_l = abs_(img - img_from_l).mean(-1, keepdim=True)
+        diff_r = abs_(img - img_from_r).mean(-1, keepdim=True)
+        weight = (1.0 - torch.softmax(torch.cat([diff_l, diff_r], -1), dim=-1)).detach()
+        weight = 2.0 * torch.exp(-((weight - 0.5) ** 2) / 0.03)
+        weight_bwd.append(weight[..., 0:1] * valid_bwd)
+        weight_fwd.append(weight[..., 1:2] * valid_fwd)
+        diff_bwd.append(diff_l)
+        diff_fwd.append(diff_r)
+    return diff_bwd, diff_fwd, weight_bwd, weight_fwd
 
 
 def texture_masks(imgs, warped, sources):

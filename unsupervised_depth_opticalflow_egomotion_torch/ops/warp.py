@@ -9,12 +9,19 @@ weight of whichever in-bounds tap lands on it.
 
 Two samplers:
 
-- ``warp_gather`` (the kernel): every 3-channel DATA source (a uint8 camera
-  frame, or a float image declared with ``src_is_data``). On a CUDA tensor
-  it launches csrc/warp_gather.cu; on a CPU tensor it runs
-  ``warp_gather_plain``. Its forward also returns the analytic derivative
-  planes, so ``WarpGather``'s backward is elementwise; gradients flow to
-  the coordinates only (the source is data).
+- the warp-gather kernels (csrc/warp_gather.cu): every 3-channel DATA source
+  (a uint8 camera frame, or a float image declared with ``src_is_data``);
+  gradients flow to the coordinates only (the source is data). On a CUDA
+  tensor each wrapper launches its kernel; on a CPU tensor it runs its plain
+  version. ``WarpRoute.impl`` (``Config.warp_impl``) picks the form:
+  "pallas_fused" = ``WarpGather``: the forward (``WARP_GATHER``) also writes
+  the analytic derivative planes, so the backward is elementwise;
+  "pallas" = ``WarpRegather``: the forward (``WARP_GATHER_NOGRAD``) writes
+  no planes and saves only the source and the coordinates, and the backward
+  kernel (``WARP_GATHER_BWD``) gathers the taps again; "xla" = the plain
+  sampler below on every device. ``WarpRoute.bf16=False``
+  (``Config.warp_bf16``) sends float data sources to the plain sampler and
+  keeps the kernel for uint8 ones.
 - ``_sample_plain``: float activation sources (the PWC feature warps), which
   need a gradient to the source; plain PyTorch on every device, as the JAX
   package keeps them on XLA.
@@ -27,6 +34,7 @@ the weight sum (the sample of an all-ones image), and uint8 sources fold
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -39,6 +47,31 @@ WARP_GATHER = CudaKernel(
     "warp_gather", "warp_gather",
     [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
 )
+WARP_GATHER_NOGRAD = CudaKernel(
+    "warp_gather", "warp_gather_nograd",
+    [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+)
+WARP_GATHER_BWD = CudaKernel(
+    "warp_gather", "warp_gather_bwd",
+    [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I],
+)
+
+WARP_IMPLS = ("xla", "pallas", "pallas_fused")
+
+
+@dataclass(frozen=True)
+class WarpRoute:
+    """``Config.warp_impl`` and ``Config.warp_bf16``, as the samplers take them."""
+
+    impl: str = "pallas_fused"
+    bf16: bool = True
+
+    def __post_init__(self):
+        if self.impl not in WARP_IMPLS:
+            raise ValueError(f"warp_impl must be one of {WARP_IMPLS}, got {self.impl!r}")
+
+
+DEFAULT_ROUTE = WarpRoute()
 
 
 def pixel_grid(h: int, w: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -115,6 +148,21 @@ def warp_gather_plain(src, ix, iy, out_dtype):
     return rgb, wsum, dplanes
 
 
+def _check_gather_args(src, ix, iy, dtype) -> None:
+    """Validate the tensors of a warp-gather launch (``dtype``: the type of
+    the outputs, or of the cotangents)."""
+    b, _, _, c = src.shape
+    check_cuda_tensor("src", src, (torch.uint8, torch.bfloat16, torch.float32))
+    if c != 3 or ix.dim() != 3 or ix.shape[0] != b:
+        raise ValueError(f"warp_gather: src {tuple(src.shape)}, coords {tuple(ix.shape)}")
+    check_cuda_tensor("ix", ix, (torch.float32,))
+    check_cuda_tensor("iy", iy, (torch.float32,), ix.shape)
+    if dtype not in (torch.bfloat16, torch.float32) or (
+        src.dtype == torch.float32 and dtype != torch.float32
+    ):
+        raise TypeError(f"warp_gather: dtype {dtype} with a {src.dtype} source")
+
+
 def warp_gather(src, ix, iy, out_dtype):
     """Bilinear sample a 3-channel image [B,H,W,3] at pixel coords ix/iy.
 
@@ -125,15 +173,9 @@ def warp_gather(src, ix, iy, out_dtype):
     """
     if src.device.type == "cpu":
         return warp_gather_plain(src, ix, iy, out_dtype)
-    b, h, w, c = src.shape
+    _check_gather_args(src, ix, iy, out_dtype)
+    b, h, w, _ = src.shape
     _, ho, wo = ix.shape
-    check_cuda_tensor("src", src, (torch.uint8, torch.bfloat16, torch.float32))
-    if c != 3 or ix.shape[0] != b:
-        raise ValueError(f"warp_gather: src {tuple(src.shape)}, coords {tuple(ix.shape)}")
-    check_cuda_tensor("ix", ix, (torch.float32,), (b, ho, wo))
-    check_cuda_tensor("iy", iy, (torch.float32,), (b, ho, wo))
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"warp_gather: out_dtype {out_dtype}")
     rgb = torch.empty((b, ho, wo, 3), device=src.device, dtype=out_dtype)
     wsum = torch.empty((b, ho, wo, 1), device=src.device, dtype=out_dtype)
     dplanes = torch.empty((b, ho, wo, 6), device=src.device, dtype=torch.float32)
@@ -143,6 +185,22 @@ def warp_gather(src, ix, iy, out_dtype):
         DTYPE_CODE[out_dtype], b, h, w, ho, wo,
     )
     return rgb, wsum, dplanes
+
+
+def warp_gather_nograd(src, ix, iy, out_dtype):
+    """``warp_gather`` without the derivative planes: (rgb, weight_sum)."""
+    if src.device.type == "cpu":
+        return warp_gather_plain(src, ix, iy, out_dtype)[:2]
+    _check_gather_args(src, ix, iy, out_dtype)
+    b, h, w, _ = src.shape
+    _, ho, wo = ix.shape
+    rgb = torch.empty((b, ho, wo, 3), device=src.device, dtype=out_dtype)
+    wsum = torch.empty((b, ho, wo, 1), device=src.device, dtype=out_dtype)
+    WARP_GATHER_NOGRAD(
+        src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
+        rgb.data_ptr(), wsum.data_ptr(), DTYPE_CODE[out_dtype], b, h, w, ho, wo,
+    )
+    return rgb, wsum
 
 
 def warp_coord_vjp(dplanes, g_rgb, g_w, ix, iy, h: int, w: int):
@@ -163,6 +221,62 @@ def warp_coord_vjp(dplanes, g_rgb, g_w, ix, iy, h: int, w: int):
         dix = ex if dix is None else dix + ex
         diy = ey if diy is None else diy + ey
     return dix, diy
+
+
+def warp_gather_backward_plain(src, ix, iy, g_rgb, g_w):
+    """Plain PyTorch version of the re-gather backward kernel: the
+    elementwise VJP fed by the plain forward's derivative planes."""
+    _, h, w, _ = src.shape
+    dplanes = warp_gather_plain(src, ix, iy, torch.float32)[2]
+    dix, diy = warp_coord_vjp(dplanes, g_rgb, g_w, ix, iy, h, w)
+    if dix is None:
+        dix, diy = torch.zeros_like(ix), torch.zeros_like(iy)
+    return dix, diy
+
+
+def warp_gather_backward(src, ix, iy, g_rgb, g_w):
+    """Coordinate VJP (dix, diy f32 [B,Ho,Wo]) of ``warp_gather_nograd`` for
+    the cotangents ``g_rgb`` [B,Ho,Wo,3] and ``g_w`` [B,Ho,Wo,1] (either may
+    be None), by gathering the taps again. CUDA tensors launch the kernel;
+    CPU tensors take the plain version."""
+    if src.device.type == "cpu":
+        return warp_gather_backward_plain(src, ix, iy, g_rgb, g_w)
+    given = [g for g in (g_rgb, g_w) if g is not None]
+    if not given:
+        return torch.zeros_like(ix), torch.zeros_like(iy)
+    _check_gather_args(src, ix, iy, given[0].dtype)
+    b, h, w, _ = src.shape
+    _, ho, wo = ix.shape
+    for name, g, ch in (("g_rgb", g_rgb, 3), ("g_w", g_w, 1)):
+        if g is not None:
+            check_cuda_tensor(name, g, (given[0].dtype,), (b, ho, wo, ch))
+    dix = torch.empty_like(ix)
+    diy = torch.empty_like(iy)
+    WARP_GATHER_BWD(
+        src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
+        None if g_rgb is None else g_rgb.data_ptr(),
+        None if g_w is None else g_w.data_ptr(),
+        DTYPE_CODE[given[0].dtype], dix.data_ptr(), diy.data_ptr(), b, h, w, ho, wo,
+    )
+    return dix, diy
+
+
+class WarpRegather(torch.autograd.Function):
+    """``warp_gather_nograd`` with the re-gather coordinate backward; saves
+    the source and the coordinates, and no derivative planes."""
+
+    @staticmethod
+    def forward(ctx, src, ix, iy, out_dtype):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(src, ix, iy)
+        return warp_gather_nograd(src, ix, iy, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_w):
+        src, ix, iy = ctx.saved_tensors
+        g_rgb, g_w = (None if g is None else g.contiguous() for g in (g_rgb, g_w))
+        dix, diy = warp_gather_backward(src, ix, iy, g_rgb, g_w)
+        return None, dix, diy, None
 
 
 class WarpGather(torch.autograd.Function):
@@ -199,12 +313,15 @@ def _sample_plain(img, ix, iy, dtype, scale):
     return out, (wy0 + wy1) * (wx0 + wx1)
 
 
-def grid_sample_with_weight(img, coords, out_dtype=None, src_is_data=False):
+def grid_sample_with_weight(
+    img, coords, out_dtype=None, src_is_data=False, route: WarpRoute = DEFAULT_ROUTE
+):
     """Bilinear sample NHWC ``img`` at normalized ``coords`` [B,Ho,Wo,2].
 
     Returns (sampled [B,Ho,Wo,C], weight_sum [B,Ho,Wo,1]). 3-channel data
     sources (uint8, or float with ``src_is_data``) go to the warp-gather
-    kernel; other sources take the differentiable plain sampler.
+    kernels as ``route`` says (see the module docstring); other sources take
+    the differentiable plain sampler.
     """
     _, h, w, c = img.shape
     is_u8 = img.dtype == torch.uint8
@@ -215,16 +332,15 @@ def grid_sample_with_weight(img, coords, out_dtype=None, src_is_data=False):
     coords = coords.float()
     ix = (coords[..., 0] + 1.0) * 0.5 * (w - 1)
     iy = (coords[..., 1] + 1.0) * 0.5 * (h - 1)
-    if c == 3 and (is_u8 or src_is_data):
-        return WarpGather.apply(
-            img.detach().contiguous(), ix.contiguous(), iy.contiguous(), dtype
-        )
+    if c == 3 and route.impl != "xla" and (is_u8 or (src_is_data and route.bf16)):
+        fn = WarpGather if route.impl == "pallas_fused" else WarpRegather
+        return fn.apply(img.detach().contiguous(), ix.contiguous(), iy.contiguous(), dtype)
     return _sample_plain(img, ix, iy, dtype, 1.0 / 255.0 if is_u8 else 1.0)
 
 
-def grid_sample(img, coords, out_dtype=None, src_is_data=False):
+def grid_sample(img, coords, out_dtype=None, src_is_data=False, route: WarpRoute = DEFAULT_ROUTE):
     """Bilinear sample (see ``grid_sample_with_weight``), values only."""
-    return grid_sample_with_weight(img, coords, out_dtype, src_is_data)[0]
+    return grid_sample_with_weight(img, coords, out_dtype, src_is_data, route)[0]
 
 
 def flow_coords(flow: torch.Tensor) -> torch.Tensor:
@@ -234,14 +350,17 @@ def flow_coords(flow: torch.Tensor) -> torch.Tensor:
     return normalize_coords(grid + flow.float(), h, w)
 
 
-def warp_flow(x, flow, use_mask: bool = False, out_dtype=None, src_is_data=False):
+def warp_flow(
+    x, flow, use_mask: bool = False, out_dtype=None, src_is_data=False,
+    route: WarpRoute = DEFAULT_ROUTE,
+):
     """Backward-warp NHWC ``x`` by optical flow [B,H,W,2].
 
     With ``use_mask`` the result is multiplied by the hard validity mask
     (weight sum >= 0.9999), computed analytically from the tap weights.
     """
     out, weight = grid_sample_with_weight(
-        x, flow_coords(flow), out_dtype=out_dtype, src_is_data=src_is_data
+        x, flow_coords(flow), out_dtype=out_dtype, src_is_data=src_is_data, route=route
     )
     if use_mask:
         mask = torch.logical_not(weight < 0.9999).to(out.dtype)

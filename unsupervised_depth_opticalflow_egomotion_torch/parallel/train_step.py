@@ -1,7 +1,7 @@
 """The training step: loss graph -> gradients -> Adam.
 
-Port of the JAX package's ``parallel/train_step.py`` for the geom objective,
-with the same four entry points:
+Port of the JAX package's ``parallel/train_step.py`` for the three training
+modes (``cfg.mode``: flow | depth | geom), with the same four entry points:
 
 - ``build_model(cfg, device)``: the ``JointModel`` built from ``Config``,
   its weights initialised from ``cfg.seed`` by an explicit
@@ -18,6 +18,11 @@ with the same four entry points:
 
 The model and the optimizer state are updated in place; BatchNorm running
 statistics update during the forward, as flax's mutable ``batch_stats``.
+A mode trains the networks it runs: flow mode the feature pyramid and the
+PWC decoder (no BatchNorm module runs, so every running statistic stays as
+it was), depth mode the depth and pose networks. The other networks get no
+gradient; Adam skips them and keeps no moments for them, which leaves them
+where optax's zero gradient leaves them.
 """
 
 from __future__ import annotations
@@ -27,22 +32,15 @@ import torch
 from ..config import Config, loss_weights
 from ..models.joint import JointModel
 from ..models.layers import init_weights
-from ..ops.ssim import ssim_route
 from ..utils.device import resolve_device
 
 
 def build_model(cfg: Config, device=None) -> JointModel:
     """``JointModel`` from ``cfg``, initialised from ``cfg.seed``, in train mode.
 
-    Raises when CUDA is absent unless ``device="cpu"``, and for
-    ``ssim_impl="pallas"`` on CUDA (that SSIM kernel is not ported yet).
+    Raises when CUDA is absent unless ``device="cpu"``.
     """
     dev = resolve_device(device)
-    if cfg.mode != "geom":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} is not ported yet; only 'geom' (ROADMAP.md, queue 1)"
-        )
-    ssim_route(cfg.ssim_impl, dev)
     model = JointModel(cfg)
     init_weights(model, torch.Generator().manual_seed(cfg.seed))
     return model.to(dev).train()
@@ -88,15 +86,24 @@ def clip_by_global_norm(params, max_norm: float) -> None:
         g.mul_(scale.to(g.dtype))
 
 
+def _forward(model: JointModel, cfg: Config, batch):
+    """The loss pack (dict of [B] vectors) of ``cfg.mode`` on ``batch``."""
+    if cfg.mode == "flow":
+        return model.forward_flow(*batch)
+    if cfg.mode == "depth":
+        return model.forward_depth(*batch)
+    return model.forward_geom(*batch)[0]
+
+
 def make_train_step(model: JointModel, cfg: Config, optimizer: torch.optim.Optimizer):
-    """One geom training step: ``step(batch) -> metrics`` (device scalars)."""
+    """One training step of ``cfg.mode``: ``step(batch) -> metrics`` (device
+    scalars)."""
     weights = loss_weights(cfg)
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(batch):
-        images, K_ms, K_inv_ms = batch
-        loss_pack, _ = model.forward_geom(images, K_ms, K_inv_ms)
-        total = torch.zeros((), device=images.device)
+        loss_pack = _forward(model, cfg, batch)
+        total = torch.zeros((), device=batch[0].device)
         metrics = {}
         for k, v in loss_pack.items():
             m = v.mean()
