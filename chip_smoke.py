@@ -11,11 +11,15 @@ uses card 0). Phases, in order; any failure exits non-zero:
    unsupervised_depth_opticalflow_egomotion_torch/csrc/ for sm_90a, one
    process per source, in parallel.
 3. kernels: each of the nine kernels against its plain PyTorch version on
-   the card, at the shapes and dtypes of the train steps (b8, 256x832: the
-   warps and cost volumes run on 2B = 16 images, the SSIM maps and the
-   splats on 8), forward and backward, and timed with CUDA events beside the
-   plain version, a PyTorch library call where one computes the same
-   function, and the least time the card could take.
+   the card, at every shape and dtype that the train steps of phase 5 give
+   it (b8, 256x832: the geom and flow warps and the cost volumes run on
+   2B = 16 images, the depth warps, the SSIM maps and the splats on 8),
+   forward and backward, and timed with CUDA events beside the plain
+   version, a PyTorch library call where one computes the same function,
+   and the least time the card could take. Each kernel records the argument
+   signatures (dtype codes and sizes) it was launched with; phase 5 fails if
+   a train step launches a kernel with a signature that this phase did not
+   hold against the plain version.
 4. parity: one train step with the kernels on the card against the plain
    versions on the CPU, at 64x128 b2 in f32 (TF32 off), from the same seed:
    the geom step under the default Config, a flow step under
@@ -29,10 +33,13 @@ uses card 0). Phases, in order; any failure exits non-zero:
    warp_impl="pallas", pwc_corr="pallas". Every run zeroes the launch
    counts just before and reads them just after, and checks finite losses,
    moved parameters of the networks the mode trains, bit-equal parameters of
-   the others, and the exact launch count of every kernel.
+   the others, the exact launch count of every kernel, and that every
+   launch had a signature checked in phase 3.
 
 The last three lines of standard output are the card's name and power
-limit, one JSON object with a row per kernel, and
+limit, one JSON object with a row per kernel (its launches, time and bound
+on the first of the paths geom, flow, depth, geom_regather that launches it,
+named in "path", and the same for every path under "by_path"), and
 {"ok": true, "device": {...}}. Details (per-shape kernel table, compiler
 report, profiles) go to chiprun_out/chip_smoke/.
 """
@@ -57,6 +64,11 @@ SSIM_FWD_FLOPS = 70  # per element: five 9-tap sums, the map
 SSIM_BWD_FLOPS = 150  # per element: the statistics again, four planes, four 9-tap sums
 SPLAT_FLOPS_PER_PIXEL = 20
 _TPU = "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/"
+# the train paths of phase 5 that the kernel table reports, in the order in
+# which a kernel's row picks its path; geom_regather is the geom step under
+# warp_impl="pallas", pwc_corr="pallas"
+PATHS = ("geom", "flow", "depth", "geom_regather")
+CHECKED: dict[str, set] = {}  # kernel -> launch signatures held in phase 3
 
 
 def fail(msg: str) -> None:
@@ -86,6 +98,12 @@ def cuda_ms(fn, iters: int) -> float:
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def elem_ratio(got, ref, rtol: float, floor: float) -> float:
+    """Largest |got - ref| / (rtol |ref| + floor) over the elements."""
+    got, ref = got.float(), ref.float()
+    return ((got - ref).abs() / (rtol * ref.abs() + floor)).max().item()
 
 
 def valid_shifts(h: int, w: int, md: int) -> int:
@@ -179,14 +197,24 @@ def phase_kernels():
     gen = torch.Generator().manual_seed(0)
     rows = []  # one per (kernel, shape)
 
-    # warp: (source dtype, H, W, launches per step); out bf16 as on the path,
-    # plus one f32 case with TF32 off (not on the path: checked, not summed)
+    for k, _ in path_kernels().values():
+        k.seen.clear()
+    # warp: (source dtype, B, H, W, launches per step by path); out bf16 as on
+    # the paths. The geom and flow steps warp both directions as one 2B = 16
+    # problem, from the uint8 frames at scale 0 (geom: the rigid and the flow
+    # reconstruction; flow: all four flow scales); the depth step warps each
+    # neighbour on its own (B = 8, two a scale) from bf16 frames. Plus one
+    # f32 case with TF32 off (on no path: checked, not summed).
+    both = {"geom": 2, "flow": 1}
     cases = [
-        ("uint8", 256, 832, 2), ("bfloat16", 128, 416, 2), ("bfloat16", 64, 208, 2),
-        ("float32", 256, 832, 0),
+        ("uint8", 16, 256, 832, both), ("bfloat16", 16, 128, 416, both),
+        ("bfloat16", 16, 64, 208, both), ("bfloat16", 16, 32, 104, {"flow": 1}),
+        ("bfloat16", 8, 256, 832, {"depth": 2}), ("bfloat16", 8, 128, 416, {"depth": 2}),
+        ("bfloat16", 8, 64, 208, {"depth": 2}),
+        ("float32", 16, 256, 832, {}),
     ]
-    for sdt, h, w, per_step in cases:
-        b = 16
+    for sdt, b, h, w, per_step in cases:
+        regather = {"geom_regather": per_step["geom"]} if "geom" in per_step else {}
         u8 = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8)
         src = u8.to(dev) if sdt == "uint8" else (u8.float() / 255.0).to(dev, getattr(torch, sdt))
         odt = torch.float32 if sdt == "float32" else torch.bfloat16
@@ -218,7 +246,7 @@ def phase_kernels():
             lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
                                   align_corners=True), 20)
         rows.append(dict(
-            kernel="warp_gather", shape=f"{sdt}[16,{h},{w},3]->{str(odt)[6:]}",
+            kernel="warp_gather", shape=f"{sdt}[{b},{h},{w},3]->{str(odt)[6:]}",
             per_step=per_step, max_abs_err=max(errs[:2]), deriv_err=errs[2],
             bwd_err=bwd_err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
@@ -230,22 +258,23 @@ def phase_kernels():
         b_ms, b_by = bound(src.numel() * esz + 8 * n + 4 * n * osz,
                            WARP_NOGRAD_FLOPS_PER_PIXEL * n, "float32")
         rows.append(dict(
-            kernel="warp_gather_nograd", shape=f"{sdt}[16,{h},{w},3]->{str(odt)[6:]}",
-            per_step=per_step, max_abs_err=err_n, tol=tol, ok=err_n <= tol,
+            kernel="warp_gather_nograd", shape=f"{sdt}[{b},{h},{w},3]->{str(odt)[6:]}",
+            per_step=regather, max_abs_err=err_n, tol=tol, ok=err_n <= tol,
             ms=cuda_ms(lambda: wp.warp_gather_nograd(src, ix, iy, odt), 20),
             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
         ))
         bk = wp.warp_gather_backward(src, ix, iy, g_rgb, g_w)
         bp = wp.warp_gather_backward_plain(src, ix, iy, g_rgb, g_w)
         err_b = max(max_err(bk[0], bp[0]), max_err(bk[1], bp[1]))
-        only_w = wp.warp_gather_backward(src, ix, iy, None, g_w)
-        only_w_p = wp.warp_gather_backward_plain(src, ix, iy, None, g_w)
-        err_b = max(err_b, max_err(only_w[0], only_w_p[0]), max_err(only_w[1], only_w_p[1]))
+        for ga, gb in ((None, g_w), (g_rgb, None)):  # one cotangent absent
+            one = wp.warp_gather_backward(src, ix, iy, ga, gb)
+            one_p = wp.warp_gather_backward_plain(src, ix, iy, ga, gb)
+            err_b = max(err_b, max_err(one[0], one_p[0]), max_err(one[1], one_p[1]))
         b_ms, b_by = bound(src.numel() * esz + 8 * n + 4 * n * osz + 8 * n,
                            WARP_BWD_FLOPS_PER_PIXEL * n, "float32")
         rows.append(dict(
-            kernel="warp_gather_bwd", shape=f"{sdt}[16,{h},{w},3] g {str(odt)[6:]}",
-            per_step=per_step, max_abs_err=err_b, tol=1e-5 * scale, ok=err_b <= 1e-5 * scale,
+            kernel="warp_gather_bwd", shape=f"{sdt}[{b},{h},{w},3] g {str(odt)[6:]}",
+            per_step=regather, max_abs_err=err_b, tol=1e-5 * scale, ok=err_b <= 1e-5 * scale,
             ms=cuda_ms(lambda: wp.warp_gather_backward(src, ix, iy, g_rgb, g_w), 20),
             plain_ms=cuda_ms(lambda: wp.warp_gather_backward_plain(src, ix, iy, g_rgb, g_w), 3),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -253,8 +282,8 @@ def phase_kernels():
 
     # correlation: the five PWC levels of the 2B decoder batch, bf16
     levels = [(4, 13, 196), (8, 26, 128), (16, 52, 96), (32, 104, 64), (64, 208, 32)]
-    cases = [(h, w, c, "bfloat16", 1) for h, w, c in levels] + [(64, 208, 32, "float32", 0)]
-    for h, w, c, dts, per_step in cases:
+    cases = [(h, w, c, "bfloat16", True) for h, w, c in levels] + [(64, 208, 32, "float32", False)]
+    for h, w, c, dts, on_path in cases:
         b, md, nd = 16, 4, 81
         dt = getattr(torch, dts)
         f1 = (0.5 * torch.randn(b, h, w, c, generator=gen)).to(dev, dt)
@@ -288,7 +317,10 @@ def phase_kernels():
             err = max_err(k_out, p_out)
             b_ms, b_by = bound(nbytes, 2 * macs, dts)
             rows.append(dict(
-                kernel=name, shape=f"{dts}[16,{h},{w},{c}]", per_step=per_step,
+                kernel=name, shape=f"{dts}[16,{h},{w},{c}]",
+                # pwc_corr="pallas" launches the forward kernel only
+                per_step=({"geom": 1, "flow": 1, **({"geom_regather": 1} if name == "corr_fwd" else {})}
+                          if on_path else {}),
                 max_abs_err=err, tol=rel * scale, ok=err <= rel * scale,
                 ms=cuda_ms(k_fn, 20),
                 plain_ms=cuda_ms(p_fn, 3) if name == "corr_fwd" else plain_bwd_ms,
@@ -298,8 +330,9 @@ def phase_kernels():
     # f32 check. Images in [0, 1] that differ by noise, a third of the pixels
     # zeroed in both (as the loss's mask products do). Value, both gradients,
     # and the border ring (where the zero padding acts) on its own.
-    cases = [(256, 832, "bfloat16", 2), (128, 416, "bfloat16", 2), (64, 208, "bfloat16", 2),
-             (256, 832, "float32", 0)]
+    three = {"geom": 2, "flow": 2, "geom_regather": 2}
+    cases = [(256, 832, "bfloat16", three), (128, 416, "bfloat16", three),
+             (64, 208, "bfloat16", three), (256, 832, "float32", {})]
     for h, w, dts, per_step in cases:
         b, dt = 8, getattr(torch, dts)
         x = torch.rand(b, h, w, 3, generator=gen)
@@ -312,17 +345,24 @@ def phase_kernels():
         s_p = ss.ssim_plain(x, y)
         dx_p, dy_p = ss.ssim_backward_plain(x, y, g)
         f32 = dt == torch.float32
-        # f32: the same sums in another order. bf16: the same bf16 inputs, f32
-        # intermediates on both sides, one bf16 rounding of the result.
+        # f32: the same sums in another order; gradients to 1e-4 of the largest
+        # (they grow where both windows are nearly empty and the denominator
+        # nears C1 C2). bf16: the same bf16 inputs, f32 intermediates on both
+        # sides, one bf16 rounding of the result: 8e-3 on the map, and each
+        # gradient element to one bf16 ulp of its own value (8e-3 relative)
+        # plus 1e-5 of the largest for the elements near zero, where the f32
+        # sums cancel.
         tol_s = 1e-5 if f32 else 8e-3
         gscale = max(dx_p.float().abs().max().item(), dy_p.float().abs().max().item(), 1.0)
-        tol_g = (1e-4 if f32 else 1e-2) * gscale
+        g_rtol, g_floor = (0.0, 1e-4 * gscale) if f32 else (8e-3, 1e-5 * gscale)
         ring = torch.ones(h, w, dtype=torch.bool, device=dev)
         ring[1:-1, 1:-1] = False
         err_s = max_err(s_k, s_p)
         err_g = max(max_err(dx_k, dx_p), max_err(dy_k, dy_p))
         ring_s = max_err(s_k[:, ring], s_p[:, ring])
         ring_g = max(max_err(dx_k[:, ring], dx_p[:, ring]), max_err(dy_k[:, ring], dy_p[:, ring]))
+        # the ring's elements are among the frame's: one ratio covers both
+        ratio_g = max(elem_ratio(dx_k, dx_p, g_rtol, g_floor), elem_ratio(dy_k, dy_p, g_rtol, g_floor))
         n = x.numel()
         esz = x.element_size()
         fb_ms, fb_by = bound(3 * n * esz, SSIM_FWD_FLOPS * n, "float32")
@@ -336,7 +376,8 @@ def phase_kernels():
         ))
         rows.append(dict(
             kernel="ssim_bwd", shape=f"{dts}[8,{h},{w},3]", per_step=per_step,
-            max_abs_err=err_g, ring_err=ring_g, tol=tol_g, ok=err_g <= tol_g and ring_g <= tol_g,
+            max_abs_err=err_g, ring_err=ring_g, tol=g_floor, rtol=g_rtol, tol_ratio=ratio_g,
+            ok=ratio_g <= 1.0,
             ms=cuda_ms(lambda: ss.ssim_backward(x, y, g), 20),
             plain_ms=cuda_ms(lambda: ss.ssim_backward_plain(x, y, g), 3),
             library_ms=None, bound_ms=bb_ms, bound_by=bb_by,
@@ -349,9 +390,10 @@ def phase_kernels():
     # windowed kernel would drop mass. The kernel's f32 atomics sum in an
     # order that changes from run to run: 1e-5 of the largest mass in f32;
     # bf16 adds the one rounding of the output.
-    cases = [(256, 832, "bfloat16", 2, False), (128, 416, "bfloat16", 2, False),
-             (64, 208, "bfloat16", 2, False), (32, 104, "bfloat16", 2, False),
-             (256, 832, "float32", 0, False), (256, 832, "float32", 0, True)]
+    two = {"flow": 2}
+    cases = [(256, 832, "bfloat16", two, False), (128, 416, "bfloat16", two, False),
+             (64, 208, "bfloat16", two, False), (32, 104, "bfloat16", two, False),
+             (256, 832, "float32", {}, False), (256, 832, "float32", {}, True)]
     for h, w, dts, per_step, far in cases:
         b, dt = 8, getattr(torch, dts)
         flow = 8.0 * torch.rand(b, h, w, 2, generator=gen) - 4.0
@@ -376,12 +418,17 @@ def phase_kernels():
         ))
 
     torch.cuda.synchronize()
+    for name, (k, _) in path_kernels().items():
+        CHECKED[name] = set(k.seen)
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump(rows, f, indent=1)
     for r in rows:
         lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        tol = f"{r['tol']:.3g}"
+        if r.get("rtol"):
+            tol += f" + {r['rtol']:g} |ref| by element, worst ratio {r['tol_ratio']:.3g}"
         log(f"kernel {r['kernel']:18s} {r['shape']:34s} err {r['max_abs_err']:.3g} "
-            f"(tol {r['tol']:.3g}) {'ok' if r['ok'] else 'MISMATCH'}  ms {r['ms']:.4f} "
+            f"(tol {tol}) {'ok' if r['ok'] else 'MISMATCH'}  ms {r['ms']:.4f} "
             f"plain {r['plain_ms']:.4f} lib {lib} bound {r['bound_ms']:.4f} ({r['bound_by']})")
     bad = [f"{r['kernel']} {r['shape']}" for r in rows if not r["ok"]]
     if bad:
@@ -476,8 +523,9 @@ def _drive(run, per_step, warmup, timed):
     just before and read just after; checks finite losses, moved parameters
     of the networks the mode trains, bit-equal parameters of the others, and
     the exact launch count of every kernel (``per_step``: kernel -> launches
-    a step; the others must stay at zero). Returns (launches, ms per step or
-    None, peak GiB)."""
+    a step; the others must stay at zero), and that every launch had a
+    signature that phase 3 held against the plain version. Returns
+    (launches, ms per step or None, peak GiB)."""
     import torch
 
     name, step, batch = run["name"], run["step"], run["batch"]
@@ -486,6 +534,7 @@ def _drive(run, per_step, warmup, timed):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
+        k.seen.clear()
     for _ in range(warmup):
         metrics = step(batch)
     torch.cuda.synchronize()
@@ -511,6 +560,10 @@ def _drive(run, per_step, warmup, timed):
     want = {n: per_step.get(n, 0) * (warmup + timed) for n in kernels}
     if launches != want:
         fail(f"{name}: kernel launches {launches}, expected {want}")
+    unchecked = {n: sorted(k.seen - CHECKED[n]) for n, k in kernels.items() if k.seen - CHECKED[n]}
+    if unchecked:
+        fail(f"{name}: launches with signatures (dtype codes, sizes) that the kernels phase "
+             f"did not hold against the plain version: {unchecked}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     ms = dt / timed * 1e3 if timed else None
     timing = f"{timed} timed steps, {ms:.1f} ms/step, " if timed else ""
@@ -539,19 +592,19 @@ def phase_train(smi: str):
     torch.backends.cudnn.benchmark = True
     corr = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5}
     ssim = {"ssim_fwd": 6, "ssim_bwd": 6}
-    total = {}
+    by_path = {}  # path -> (launches by kernel, steps) of its first run
 
-    def drive(run, per_step, warmup, timed):
+    def drive(run, per_step, warmup, timed, path=None):
         launches, ms, peak = _drive(run, per_step, warmup, timed)
-        for n, c in launches.items():
-            total[n] = total.get(n, 0) + c
+        if path is not None:
+            by_path[path] = (launches, warmup + timed)
         return ms, peak
 
     geom_k = {"warp_gather": 6, **corr, **ssim}
     xla_k = {"warp_gather": 6, **corr}
     geom = _start("geom default", {})
     xla = _start("geom ssim_impl=xla", {"ssim_impl": "xla"})
-    ms_g, gb_g = drive(geom, geom_k, 3, 10)
+    ms_g, gb_g = drive(geom, geom_k, 3, 10, "geom")
     _metric_line("frames/sec joint depth+flow+pose fwd-bwd (b8 256x832 bf16, PyTorch port)",
                  ms_g, smi)
     ms_x, gb_x = drive(xla, xla_k, 3, 10)
@@ -560,17 +613,18 @@ def phase_train(smi: str):
 
     flow_k = {"warp_gather": 4, **corr, **ssim, "splat_mass": 8}
     flow = _start("flow splat", {"mode": "flow", "flow_occ_impl": "splat"})
-    ms_f, _ = drive(flow, flow_k, 3, 5)
+    ms_f, _ = drive(flow, flow_k, 3, 5, "flow")
     _metric_line("frames/sec flow-mode fwd-bwd (b8 256x832 bf16, flow_occ_impl=splat, "
                  "PyTorch port)", ms_f, smi)
-    for name, overrides, per_step in (
-        ("flow splat_nn", {"mode": "flow"}, {"warp_gather": 4, **corr, **ssim}),
-        ("depth", {"mode": "depth"}, {"warp_gather": 6}),
-        ("geom warp_impl=pallas pwc_corr=pallas", {"warp_impl": "pallas", "pwc_corr": "pallas"},
+    for name, path, overrides, per_step in (
+        ("flow splat_nn", None, {"mode": "flow"}, {"warp_gather": 4, **corr, **ssim}),
+        ("depth", "depth", {"mode": "depth"}, {"warp_gather": 6}),
+        ("geom warp_impl=pallas pwc_corr=pallas", "geom_regather",
+         {"warp_impl": "pallas", "pwc_corr": "pallas"},
          {"warp_gather_nograd": 6, "warp_gather_bwd": 6, "corr_fwd": 5, **ssim}),
     ):
         run = _start(name, overrides)
-        drive(run, per_step, 2, 0)
+        drive(run, per_step, 2, 0, path)
         del run
         torch.cuda.empty_cache()
 
@@ -581,7 +635,7 @@ def phase_train(smi: str):
         f"(10 timed steps each), then {ms_g2:.1f} vs {ms_x2:.1f} (5 each, in the other order); "
         f"{n_g} vs {n_x} kernel launches/step, device time {dev_g:.1f} vs {dev_x:.1f} ms/step, "
         f"peak memory {gb_g:.2f} vs {gb_x:.2f} GiB")
-    return total
+    return by_path
 
 
 def _profile(name, step, batch, step_ms: float, verbose: bool):
@@ -639,32 +693,46 @@ def main():
     phase_build()
     rows = phase_kernels()
     phase_parity()
-    launches = phase_train(smi)
+    by_path = phase_train(smi)
 
     table = []
     for name, (kernel, replaces) in path_kernels().items():
-        on_path = [r for r in rows if r["kernel"] == name and r["per_step"]]
         mine = [r for r in rows if r["kernel"] == name]
-        if not on_path or launches[name] <= 0:
+        paths = {}
+        for path in PATHS:
+            on_path = [(r, r["per_step"][path]) for r in mine if r["per_step"].get(path)]
+            launches, steps = by_path[path]
+            # the per-shape rows of phase 3 must account for every launch
+            if sum(n for _, n in on_path) * steps != launches[name]:
+                fail(f"kernel {name}: the kernels phase attributes {sum(n for _, n in on_path)} "
+                     f"launches a step to the {path} path, which made {launches[name]} in {steps}")
+            if not on_path:
+                continue
+
+            def per_step_sum(key):
+                if any(r[key] is None for r, _ in on_path):
+                    return None
+                return round(sum(r[key] * n for r, n in on_path), 4)
+
+            paths[path] = {
+                "launches": launches[name], "steps": steps,
+                "ms": per_step_sum("ms"), "plain_ms": per_step_sum("plain_ms"),
+                "bound_ms": per_step_sum("bound_ms"),
+                "bound_by": max(on_path, key=lambda rn: rn[0]["bound_ms"] * rn[1])[0]["bound_by"],
+                "library_ms": per_step_sum("library_ms"),
+            }
+        if not paths:
             fail(f"kernel {name} was not launched on any train path")
-
-        def per_step_sum(key):
-            if any(r[key] is None for r in on_path):
-                return None
-            return round(sum(r[key] * r["per_step"] for r in on_path), 4)
-
-        b_by = max(on_path, key=lambda r: r["bound_ms"] * r["per_step"])["bound_by"]
+        first = next(iter(paths))
         table.append({
             "name": name, "route": "cuda", "source": kernel.source, "replaces": replaces,
-            "launches": launches[name],
+            "path": first, **paths[first],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": per_step_sum("ms"), "plain_ms": per_step_sum("plain_ms"),
-            "bound_ms": per_step_sum("bound_ms"), "bound_by": b_by,
-            "library_ms": per_step_sum("library_ms"),
+            "by_path": paths,
         })
-    log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are per train step on the "
-        "path that launches the kernel (each shape times its launches per step); launches are "
-        "summed over the train runs")
+    log(f"total {time.perf_counter() - t_start:.1f} s; a kernel's launches are those of the "
+        "run of its path, and its times are per train step of that path (each shape's time "
+        "times its launches a step)")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

@@ -183,7 +183,9 @@ def test_ssim_kernels_match_plain_on_card(cuda, shape, dtype):
     largest value (they reach ~1e3 where both windows are nearly empty: the
     denominator falls to C1 C2). bf16: inputs and cotangent are the same
     bf16 values on both sides and every intermediate is f32, so the results
-    differ by one bf16 rounding: 8e-3 on the map, 1e-2 relative on gradients.
+    differ by one bf16 rounding: 8e-3 on the map, and each gradient element
+    to one bf16 ulp of its own value (8e-3 relative) plus 1e-5 of the
+    largest gradient for the elements near zero, where the f32 sums cancel.
     """
     x, y, g = (torch.from_numpy(a).to(cuda, dtype) for a in _ssim_inputs(shape, 11))
     counts = (tss.SSIM_FWD.launches, tss.SSIM_BWD.launches)
@@ -203,7 +205,10 @@ def test_ssim_kernels_match_plain_on_card(cuda, shape, dtype):
         for got, want in ((dx, wdx), (dy, wdy)):
             got, want = got.float()[:, sel], want.float()[:, sel]
             scale = max(want.abs().max().item(), 1.0)
-            torch.testing.assert_close(got, want, atol=(1e-4 if f32 else 1e-2) * scale, rtol=0)
+            if f32:
+                torch.testing.assert_close(got, want, atol=1e-4 * scale, rtol=0)
+            else:
+                torch.testing.assert_close(got, want, atol=1e-5 * scale, rtol=8e-3)
 
     # through autograd: ssim(impl="pallas") on the card equals the closed form
     xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)

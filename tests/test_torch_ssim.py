@@ -96,16 +96,22 @@ def test_ssim_bf16_matches_jax(form):
     """bf16 inputs and cotangent (the same bf16 values on both sides), f32
     statistics, bf16 out. Against the JAX kernel, which like the port applies
     the closed form to the bf16 cotangent, the results differ by one bf16
-    rounding: 8e-3 on the map, 1e-2 of the largest gradient. JAX's autodiff
-    of the XLA form rounds its intermediates to bf16 at other places: the
-    map to 8e-3, the gradients to 3e-2 of the largest."""
+    rounding: 8e-3 on the map, and each gradient element to one bf16 ulp of
+    its own value (8e-3 relative) plus 1e-5 of the largest gradient for the
+    elements near zero, where the f32 sums cancel. A bound scaled by the
+    largest gradient alone would be about a typical gradient's size. JAX's
+    autodiff of the XLA form rounds its intermediates to bf16 at other
+    places: the map to 8e-3, the gradients to 3e-2 of the largest."""
     x, y, g = _inputs(1)
     got = _port(x, y, g, torch.bfloat16)
     want = _jax(form, x, y, g, jnp.bfloat16)
     np.testing.assert_allclose(got[0], want[0], atol=8e-3)
-    rel = 1e-2 if form == "pallas_interpret" else 3e-2
     for a, b in zip(got[1:], want[1:]):
-        np.testing.assert_allclose(a, b, atol=rel * max(np.abs(b).max(), 1.0))
+        scale = max(np.abs(b).max(), 1.0)
+        if form == "pallas_interpret":
+            np.testing.assert_allclose(a, b, rtol=8e-3, atol=1e-5 * scale)
+        else:
+            np.testing.assert_allclose(a, b, atol=3e-2 * scale)
 
 
 def test_closed_form_matches_autograd_of_plain_map():

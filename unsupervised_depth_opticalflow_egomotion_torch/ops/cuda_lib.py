@@ -9,7 +9,10 @@ on that stream and returns ``cudaGetLastError()``.
 
 A ``CudaKernel`` is one C entry: its ctypes binding and a plain integer
 ``launches`` count, incremented where the kernel is launched and nowhere
-else, so a run can show that its main path went through the kernel.
+else, so a run can show that its main path went through the kernel. It also
+keeps the set of argument signatures it was launched with (``seen``), so a
+run can show that every shape and dtype its path gave the kernel was one
+that had been held against the plain version.
 """
 
 from __future__ import annotations
@@ -107,6 +110,7 @@ class CudaKernel:
         self._argtypes = [*argtypes, ctypes.c_void_p]  # + stream
         self._fn = None
         self.launches = 0
+        self.seen: set[tuple] = set()
 
     def __call__(self, *args) -> None:
         if self._fn is None:
@@ -118,6 +122,14 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
         self.launches += 1
+        self.seen.add(self.signature(*args))
+
+    def signature(self, *args) -> tuple:
+        """The integer arguments of a launch (dtype codes and sizes), and for
+        each pointer whether it was given: what tells two launches apart."""
+        return tuple(
+            a if t is ctypes.c_int else a is not None for a, t in zip(args, self._argtypes)
+        )
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, shape=None) -> None:
