@@ -280,9 +280,12 @@ def phase_kernels():
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
         ))
 
-    # correlation: the five PWC levels of the 2B decoder batch, bf16
+    # correlation: the five PWC levels of the 2B decoder batch, bf16; f32
+    # checks (on no path) at the finest level and at the coarsest, where the
+    # tiles' last channel chunk is partial and pixel rows are 8-byte aligned
     levels = [(4, 13, 196), (8, 26, 128), (16, 52, 96), (32, 104, 64), (64, 208, 32)]
-    cases = [(h, w, c, "bfloat16", True) for h, w, c in levels] + [(64, 208, 32, "float32", False)]
+    cases = [(h, w, c, "bfloat16", True) for h, w, c in levels] + [
+        (64, 208, 32, "float32", False), (4, 13, 196, "float32", False)]
     for h, w, c, dts, on_path in cases:
         b, md, nd = 16, 4, 81
         dt = getattr(torch, dts)

@@ -88,15 +88,36 @@ def test_warp_kernel_matches_plain_on_card(cuda, src_dtype, out_dtype, tol):
         torch.testing.assert_close(g, w, atol=1e-4 * scale, rtol=0)
 
 
+def _on_card(x, cuda, dtype, offset):
+    """``x`` as a contiguous tensor on the card; with ``offset``, one element
+    past an allocation's start, so that its rows lose their 16-byte alignment."""
+    t = torch.from_numpy(x).to(cuda, dtype)
+    if not offset:
+        return t
+    flat = torch.empty(t.numel() + 1, device=cuda, dtype=dtype)
+    return flat[1:].view(t.shape).copy_(t)
+
+
+# (H, W, C): a small level; the five PWC levels of the decoder (C = 196 has a
+# partial channel chunk and 8-byte pixel rows); a level smaller than the
+# tiles' halo; an odd C, which takes scalar loads
+CORR_SHAPES = [(8, 16, 32), (4, 13, 196), (8, 26, 128), (16, 52, 96), (32, 104, 64),
+               (64, 208, 32), (3, 5, 12), (7, 35, 3)]
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("hwc", CORR_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-def test_correlation_kernels_match_plain_on_card(cuda, dtype, tol):
-    """Forward, df1 and df2 at md=4 on an 8x16 level with C=32. bf16: the
-    kernel and the plain version both multiply and sum in f32 and round once
-    to bf16 (one ulp, ~1e-2 relative to the largest value)."""
+def test_correlation_kernels_match_plain_on_card(cuda, dtype, tol, hwc, offset):
+    """Forward, df1 and df2 at md=4, B=2, at every shape the tiles can get
+    wrong, from aligned and from misaligned addresses. bf16: the kernel and
+    the plain version both multiply and sum in f32 and round once to bf16
+    (one ulp, ~1e-2 relative to the largest value)."""
+    h, w, c = hwc
     rng = np.random.RandomState(8)
-    f1, f2 = (rng.randn(2, 8, 16, 32).astype(np.float32) for _ in range(2))
-    cot = rng.randn(2, 8, 16, 81).astype(np.float32)
-    a, b, g = (torch.from_numpy(x).to(cuda, dtype) for x in (f1, f2, cot))
+    f1, f2 = (rng.randn(2, h, w, c).astype(np.float32) for _ in range(2))
+    cot = rng.randn(2, h, w, 81).astype(np.float32)
+    a, b, g = (_on_card(x, cuda, dtype, offset) for x in (f1, f2, cot))
     counts = [k.launches for k in (tcv.CORR_FWD, tcv.CORR_BWD_DF1, tcv.CORR_BWD_DF2)]
     out = tcv.corr_forward(a, b, 4)
     df1, df2 = tcv.corr_backward(g, a, b, 4)

@@ -1,35 +1,68 @@
-// PWC cost volume (81 shifts at md=4), forward and backward, NHWC.
+// PWC cost volume (81 shifts at md=4), forward and backward, NHWC, as
+// shared-memory halo tiles on the CUDA cores.
 //
 // Replaces: unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/
 //   correlation_fused.py:_fwd_kernel (via _corr_fwd_pallas) and
-//   _bwd_df1_kernel / _bwd_df2_kernel (via _corr_bwd_pallas).
+//   _bwd_df1_kernel / _bwd_df2_kernel (via _corr_bwd_pallas); the forward also
+//   serves correlation.py:_corr_kernel (pwc_corr="pallas").
 //
-// What it computes, with D = (2md+1)^2 shifts d = (i, j) in row-major order:
+// What it computes, with D = 81 shifts d = (i, j) in row-major order, md = 4:
 //   out[b,y,x,d] = (1/C) sum_c f1[b,y,x,c] * f2[b, y+i-md, x+j-md, c]
 // with zero padding outside f2;
 //   df1[b,y,x,c] = (1/C) sum_d g[b,y,x,d] * f2[b, y+i-md, x+j-md, c]
 //   df2[b,y,x,c] = (1/C) sum_d g[b, y-i+md, x-j+md, d] * f1[b, y-i+md, x-j+md, c]
-// The df2 form is the gather (transpose) of the TPU kernel's scatter into a
-// padded accumulator: each thread owns one output element, so no atomics and
-// the sums are deterministic. Products and sums are f32; results are stored
-// in the input dtype (bf16 or f32). The TPU forward multiplies in bf16 before
-// its f32 sum; this one multiplies in f32.
+// df2 is the gather (transpose) of the TPU kernel's scatter into a padded
+// accumulator: each thread owns its outputs, so no atomics and the sums are
+// deterministic. Products and sums are f32, one rounding to the output dtype
+// (bf16 or f32) at the end. The TPU forward multiplies in bf16 before its f32
+// sum; this one multiplies in f32.
 //
-// What bounds it on the H100: at the PWC levels (C = 32..196) each output
-// element costs C multiply-adds over 2C input values, a few flops per byte
-// read, so the kernels sit near the memory side of the roofline; the
-// cost volume itself (81 values per pixel) dominates the bytes at the fine
-// levels. The TPU kernels kept a whole batch item resident in VMEM in a
-// channel-major layout sized to 128-lane tiles. Here the layout stays NHWC,
-// so each thread's C loop (forward) reads contiguous channels, and in the
-// backward neighbouring threads own neighbouring channels, so the feature
-// reads coalesce and the cost-volume value is a broadcast. Reused rows stay
-// in L1/L2; shared-memory tiling is left for a later change.
+// What bounds it on the H100: bytes. At the PWC levels (C = 32..196) an
+// output costs C multiply-adds over values that are each used by 81 shifts;
+// read once, the inputs and the 81-wide cost volume take about as long at
+// 3.35 TB/s as the multiply-adds take at the CUDA cores' f32 rate.
+//
+// What the tiles do about it: a block owns a TH x 32 tile of pixels of one
+// image and walks the channels in chunks of CK. Per chunk it stages the
+// features it needs, with the tile's +-md halo, into shared memory as f32
+// (one HBM/L2 read per value and tile; out-of-frame halo pixels are written
+// as zeros, which is the zero padding, so the inner loops have no bounds
+// checks), and every staged value is then reused from shared memory by its
+// 81 shifts. The pixel stride in shared memory is CK + 1 (odd) and a warp's
+// lanes are 32 neighbouring pixels of one row, so the inner loops' reads hit
+// 32 different banks. Global reads of a staged pixel are 16-, 8- or 4-byte
+// vectors where C and the base address allow, else scalars; outputs are
+// staged in shared memory and written back in the same contiguous order.
+//
+// Tiles (TW = 32 pixels wide; shared memory per block, bf16 / f32 inputs):
+// - corr_fwd: TH = 2, CK = 32, 576 threads: a thread owns one pixel and one
+//   shift row i (9 accumulators over j, carried across the channel chunks).
+//   f1 tile 2x32 and f2 halo 10x40 pixels x 33 floats = 61,248 B. The outputs
+//   (2 x 32 x 81 floats) reuse that space, so each image row of the tile is
+//   written as 32 x 81 contiguous values.
+// - corr_bwd_df1: TH = 4, CK = 32, 512 threads: a thread owns one pixel and 8
+//   channels of the chunk and loops over the 81 shifts. The g tile (4x32
+//   pixels x 81, kept in the input dtype, pixel stride 82 in bf16 so that it
+//   is an odd number of words) is staged once; the f2 halo 12x40 x 33 floats
+//   per chunk: 84,352 B (bf16), 104,832 B (f32).
+// - corr_bwd_df2: TH = 4, CK = 16, 512 threads: a thread owns one pixel and 4
+//   channels of the chunk. The g halo (12x40 pixels x 81, input dtype) is
+//   staged once; the f1 halo 12x40 x 17 floats per chunk: 111,360 B (bf16),
+//   188,160 B (f32).
+// Above 48 KB a block's dynamic shared memory needs cudaFuncSetAttribute;
+// each entry sets it, and returns its error or the launch's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 enum DType { kU8 = 0, kBF16 = 1, kF32 = 2 };
+
+constexpr int MD = 4;            // the PWC search range
+constexpr int ND = 2 * MD + 1;   // shifts per axis
+constexpr int NSH = ND * ND;     // 81 shifts
+constexpr int TW = 32;           // tile width: one warp's lanes
+constexpr int HW = TW + 2 * MD;  // halo width
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -40,148 +73,357 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// one thread per output element (b, y, x, d)
-template <typename T>
-__global__ void corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2,
-                                T* __restrict__ out, int H, int W, int C, int md,
-                                long long n) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int nd = 2 * md + 1;
-  const int D = nd * nd;
-  const int d = (int)(idx % D);
-  const long long pix = idx / D;  // (b*H + y)*W + x
-  const int x = (int)(pix % W);
-  const long long by = pix / W;
-  const int y = (int)(by % H);
-  const long long b = by / H;
-  const int y2 = y + d / nd - md;
-  const int x2 = x + d % nd - md;
-  float acc = 0.f;
-  if (y2 >= 0 && y2 < H && x2 >= 0 && x2 < W) {
-    const T* a = f1 + pix * C;
-    const T* s = f2 + ((b * H + y2) * W + x2) * C;
-    for (int c = 0; c < C; ++c) acc += to_f(a[c]) * to_f(s[c]);
-  }
-  out[idx] = from_f<T>(acc * (1.0f / (float)C));
+// a register of VB bytes, for vector loads and stores
+template <int VB> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// g's pixel stride in shared memory: an odd number of 32-bit words
+template <typename T> __host__ __device__ constexpr int g_stride() {
+  return sizeof(T) == 2 ? NSH + 1 : NSH;
 }
 
-// one thread per df1 element (b, y, x, c)
-template <typename T>
-__global__ void corr_bwd_df1_kernel(const T* __restrict__ g, const T* __restrict__ f2,
-                                    T* __restrict__ df1, int H, int W, int C, int md,
-                                    long long n) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int nd = 2 * md + 1;
-  const int D = nd * nd;
-  const int c = (int)(idx % C);
-  const long long pix = idx / C;
-  const int x = (int)(pix % W);
-  const long long by = pix / W;
-  const int y = (int)(by % H);
-  const long long b = by / H;
-  const T* gp = g + pix * D;
-  float acc = 0.f;
-  for (int i = 0; i < nd; ++i) {
-    const int y2 = y + i - md;
-    if (y2 < 0 || y2 >= H) continue;
-    for (int j = 0; j < nd; ++j) {
-      const int x2 = x + j - md;
-      if (x2 < 0 || x2 >= W) continue;
-      acc += to_f(gp[i * nd + j]) * to_f(f2[((b * H + y2) * W + x2) * C + c]);
+// Stage channels [c0, c0 + CK) of the rows x cols pixels whose top-left is
+// (ya, xa) in image b into s[pixel * CKP + c] as f32; zeros out of frame and
+// for c >= ck. Consecutive threads take consecutive vectors of a pixel.
+template <typename T, int VB, int CK, int CKP>
+__device__ __forceinline__ void stage_feat(float* __restrict__ s, const T* __restrict__ f,
+                                           int b, int H, int W, int C, int c0, int ck,
+                                           int ya, int xa, int rows, int cols) {
+  constexpr int V = VB / (int)sizeof(T);
+  constexpr int NV = CK / V;
+  using R = typename Raw<VB>::type;
+  const int n = rows * cols * NV;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int pix = e / NV;
+    const int c = (e - pix * NV) * V;
+    const int hy = pix / cols;
+    const int y = ya + hy, x = xa + pix - hy * cols;
+    float* d = s + pix * CKP + c;
+    if (c < ck && y >= 0 && y < H && x >= 0 && x < W) {
+      const R r = __ldg(reinterpret_cast<const R*>(
+          f + ((long long)(b * H + y) * W + x) * C + c0 + c));
+      const T* v = reinterpret_cast<const T*>(&r);
+#pragma unroll
+      for (int k = 0; k < V; ++k) d[k] = to_f(v[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) d[k] = 0.f;
     }
   }
-  df1[idx] = from_f<T>(acc * (1.0f / (float)C));
 }
 
-// one thread per df2 element (b, y, x, c): gather over the 81 output pixels
-// whose shift lands on (y, x)
-template <typename T>
-__global__ void corr_bwd_df2_kernel(const T* __restrict__ g, const T* __restrict__ f1,
-                                    T* __restrict__ df2, int H, int W, int C, int md,
-                                    long long n) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int nd = 2 * md + 1;
-  const int D = nd * nd;
-  const int c = (int)(idx % C);
-  const long long pix = idx / C;
-  const int x = (int)(pix % W);
-  const long long by = pix / W;
-  const int y = (int)(by % H);
-  const long long b = by / H;
-  float acc = 0.f;
-  for (int i = 0; i < nd; ++i) {
-    const int y1 = y - i + md;
-    if (y1 < 0 || y1 >= H) continue;
-    for (int j = 0; j < nd; ++j) {
-      const int x1 = x - j + md;
-      if (x1 < 0 || x1 >= W) continue;
-      const long long q = (b * H + y1) * W + x1;
-      acc += to_f(g[q * D + i * nd + j]) * to_f(f1[q * C + c]);
+// Write s[pixel * CKP + c] (already scaled) for channels c < ck of the rows x
+// TW tile at (ya, xa) to out[..., c0 + c], in the staging order.
+template <typename T, int VB, int CK, int CKP>
+__device__ __forceinline__ void store_feat(T* __restrict__ out, const float* __restrict__ s,
+                                           int b, int H, int W, int C, int c0, int ck,
+                                           int ya, int xa, int rows) {
+  constexpr int V = VB / (int)sizeof(T);
+  constexpr int NV = CK / V;
+  using R = typename Raw<VB>::type;
+  const int n = rows * TW * NV;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int pix = e / NV;
+    const int c = (e - pix * NV) * V;
+    const int y = ya + pix / TW, x = xa + pix % TW;
+    if (c < ck && y < H && x < W) {
+      R r;
+      T* v = reinterpret_cast<T*>(&r);
+#pragma unroll
+      for (int k = 0; k < V; ++k) v[k] = from_f<T>(s[pix * CKP + c + k]);
+      *reinterpret_cast<R*>(out + ((long long)(b * H + y) * W + x) * C + c0 + c) = r;
     }
   }
-  df2[idx] = from_f<T>(acc * (1.0f / (float)C));
 }
 
-static inline unsigned blocks_for(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
+// Stage all 81 values of g for the rows x cols pixels at (ya, xa) into
+// s[pixel * GP + d], in the input dtype; zeros out of frame.
+template <typename T>
+__device__ __forceinline__ void stage_g(T* __restrict__ s, const T* __restrict__ g, int b,
+                                        int H, int W, int ya, int xa, int rows, int cols) {
+  constexpr int GP = g_stride<T>();
+  const int n = rows * cols * NSH;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int pix = e / NSH;
+    const int d = e - pix * NSH;
+    const int hy = pix / cols;
+    const int y = ya + hy, x = xa + pix - hy * cols;
+    s[pix * GP + d] = (y >= 0 && y < H && x >= 0 && x < W)
+                          ? g[((long long)(b * H + y) * W + x) * NSH + d]
+                          : from_f<T>(0.f);
+  }
 }
 
-// f1, f2 [B,H,W,C] -> out [B,H,W,(2md+1)^2], all of dtype (bf16 | f32).
+// ------------------------------------------------------------- forward
+
+constexpr int FWD_TH = 2, FWD_CK = 32, FWD_CKP = FWD_CK + 1;
+constexpr int FWD_THREADS = FWD_TH * ND * 32;
+constexpr int FWD_SMEM = (FWD_TH * TW + (FWD_TH + 2 * MD) * HW) * FWD_CKP * 4;
+static_assert(FWD_TH * TW * NSH * 4 <= FWD_SMEM, "output staging must fit");
+
+// warp w = (tile row r, shift row i), lane = pixel column
+template <typename T, int VB>
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+corr_fwd_kernel(const T* __restrict__ f1, const T* __restrict__ f2, T* __restrict__ out,
+                int H, int W, int C) {
+  extern __shared__ float4 smem_raw[];
+  float* f1s = reinterpret_cast<float*>(smem_raw);  // [FWD_TH * TW][CKP]
+  float* f2s = f1s + FWD_TH * TW * FWD_CKP;         // [(FWD_TH + 8) * HW][CKP]
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * FWD_TH, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = w / ND, i = w - r * ND;
+  float acc[ND];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j] = 0.f;
+
+  for (int c0 = 0; c0 < C; c0 += FWD_CK) {
+    const int ck = min(FWD_CK, C - c0);
+    __syncthreads();  // the previous chunk's reads are done
+    stage_feat<T, VB, FWD_CK, FWD_CKP>(f1s, f1, b, H, W, C, c0, ck, y0, x0, FWD_TH, TW);
+    stage_feat<T, VB, FWD_CK, FWD_CKP>(f2s, f2, b, H, W, C, c0, ck, y0 - MD, x0 - MD,
+                                       FWD_TH + 2 * MD, HW);
+    __syncthreads();
+    const float* a = f1s + (r * TW + lane) * FWD_CKP;
+    const float* s = f2s + ((r + i) * HW + lane) * FWD_CKP;
+#pragma unroll 4
+    for (int c = 0; c < ck; ++c) {
+      const float av = a[c];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) acc[j] += av * s[j * FWD_CKP + c];
+    }
+  }
+
+  __syncthreads();
+  float* os = f1s;  // [FWD_TH * TW][81], over the feature tiles
+  const float inv_c = 1.0f / (float)C;
+#pragma unroll
+  for (int j = 0; j < ND; ++j) os[(r * TW + lane) * NSH + i * ND + j] = acc[j] * inv_c;
+  __syncthreads();
+  // out[b, y, x0 : x0 + tw, :] is tw * 81 contiguous values for each row y
+  const int tw = min(TW, W - x0);
+  for (int rr = 0; rr < FWD_TH && y0 + rr < H; ++rr) {
+    T* dst = out + ((long long)(b * H + y0 + rr) * W + x0) * NSH;
+    const float* src = os + rr * TW * NSH;
+    for (int e = threadIdx.x; e < tw * NSH; e += FWD_THREADS) dst[e] = from_f<T>(src[e]);
+  }
+}
+
+// ------------------------------------------------------------- df1
+
+constexpr int DF1_TH = 4, DF1_CK = 32, DF1_CKP = DF1_CK + 1, DF1_NG = 4;
+constexpr int DF1_NC = DF1_CK / DF1_NG;  // channels a thread owns
+constexpr int DF1_THREADS = DF1_TH * DF1_NG * 32;
+constexpr int DF1_F2 = (DF1_TH + 2 * MD) * HW * DF1_CKP * 4;  // f2 halo bytes
+template <typename T> __host__ __device__ constexpr int df1_smem() {
+  return DF1_F2 + DF1_TH * TW * g_stride<T>() * (int)sizeof(T);
+}
+static_assert(DF1_TH * TW * DF1_CKP * 4 <= DF1_F2, "output staging must fit");
+
+// warp w = (tile row r, channel group grp), lane = pixel column
+template <typename T, int VB>
+__global__ void __launch_bounds__(DF1_THREADS, 2)
+corr_bwd_df1_kernel(const T* __restrict__ g, const T* __restrict__ f2, T* __restrict__ df1,
+                    int H, int W, int C) {
+  constexpr int GP = g_stride<T>();
+  extern __shared__ float4 smem_raw[];
+  float* f2s = reinterpret_cast<float*>(smem_raw);                        // [(TH+8)*HW][CKP]
+  T* gs = reinterpret_cast<T*>(reinterpret_cast<char*>(smem_raw) + DF1_F2);  // [TH*TW][GP]
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * DF1_TH, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = w % DF1_TH, grp = w / DF1_TH;
+  stage_g<T>(gs, g, b, H, W, y0, x0, DF1_TH, TW);
+  const T* gp = gs + (r * TW + lane) * GP;
+  const float inv_c = 1.0f / (float)C;
+
+  for (int c0 = 0; c0 < C; c0 += DF1_CK) {
+    const int ck = min(DF1_CK, C - c0);
+    __syncthreads();  // the previous chunk's output is written
+    stage_feat<T, VB, DF1_CK, DF1_CKP>(f2s, f2, b, H, W, C, c0, ck, y0 - MD, x0 - MD,
+                                       DF1_TH + 2 * MD, HW);
+    __syncthreads();
+    float acc[DF1_NC];
+#pragma unroll
+    for (int k = 0; k < DF1_NC; ++k) acc[k] = 0.f;
+    for (int i = 0; i < ND; ++i) {
+      const float* s = f2s + ((r + i) * HW + lane) * DF1_CKP + grp * DF1_NC;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const float gv = to_f(gp[i * ND + j]);
+#pragma unroll
+        for (int k = 0; k < DF1_NC; ++k) acc[k] += gv * s[j * DF1_CKP + k];
+      }
+    }
+    __syncthreads();
+    float* os = f2s;  // [TH * TW][CKP], over the f2 halo
+#pragma unroll
+    for (int k = 0; k < DF1_NC; ++k)
+      os[(r * TW + lane) * DF1_CKP + grp * DF1_NC + k] = acc[k] * inv_c;
+    __syncthreads();
+    store_feat<T, VB, DF1_CK, DF1_CKP>(df1, os, b, H, W, C, c0, ck, y0, x0, DF1_TH);
+  }
+}
+
+// ------------------------------------------------------------- df2
+
+constexpr int DF2_TH = 4, DF2_CK = 16, DF2_CKP = DF2_CK + 1, DF2_NG = 4;
+constexpr int DF2_NC = DF2_CK / DF2_NG;
+constexpr int DF2_THREADS = DF2_TH * DF2_NG * 32;
+constexpr int DF2_HALO = (DF2_TH + 2 * MD) * HW;              // halo pixels
+constexpr int DF2_F1 = DF2_HALO * DF2_CKP * 4;                // f1 halo bytes
+template <typename T> __host__ __device__ constexpr int df2_smem() {
+  return DF2_F1 + DF2_HALO * g_stride<T>() * (int)sizeof(T);
+}
+static_assert(DF2_TH * TW * DF2_CKP * 4 <= DF2_F1, "output staging must fit");
+
+// warp w = (tile row r, channel group grp), lane = pixel column. Output q at
+// halo coordinates (r + md, lane + md) gathers from q - (i - md, j - md).
+template <typename T, int VB>
+__global__ void __launch_bounds__(DF2_THREADS, 2)
+corr_bwd_df2_kernel(const T* __restrict__ g, const T* __restrict__ f1, T* __restrict__ df2,
+                    int H, int W, int C) {
+  constexpr int GP = g_stride<T>();
+  extern __shared__ float4 smem_raw[];
+  float* f1h = reinterpret_cast<float*>(smem_raw);                           // [HALO][CKP]
+  T* gh = reinterpret_cast<T*>(reinterpret_cast<char*>(smem_raw) + DF2_F1);  // [HALO][GP]
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * DF2_TH, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = w % DF2_TH, grp = w / DF2_TH;
+  stage_g<T>(gh, g, b, H, W, y0 - MD, x0 - MD, DF2_TH + 2 * MD, HW);
+  const float inv_c = 1.0f / (float)C;
+
+  for (int c0 = 0; c0 < C; c0 += DF2_CK) {
+    const int ck = min(DF2_CK, C - c0);
+    __syncthreads();
+    stage_feat<T, VB, DF2_CK, DF2_CKP>(f1h, f1, b, H, W, C, c0, ck, y0 - MD, x0 - MD,
+                                       DF2_TH + 2 * MD, HW);
+    __syncthreads();
+    float acc[DF2_NC];
+#pragma unroll
+    for (int k = 0; k < DF2_NC; ++k) acc[k] = 0.f;
+    for (int i = 0; i < ND; ++i) {
+      // the source row y - i + md, in halo rows: r + 2 md - i
+      const int row = (r + 2 * MD - i) * HW + lane + 2 * MD;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int src = row - j;
+        const float gv = to_f(gh[src * GP + i * ND + j]);
+        const float* s = f1h + src * DF2_CKP + grp * DF2_NC;
+#pragma unroll
+        for (int k = 0; k < DF2_NC; ++k) acc[k] += gv * s[k];
+      }
+    }
+    __syncthreads();
+    float* os = f1h;  // [TH * TW][CKP], over the f1 halo
+#pragma unroll
+    for (int k = 0; k < DF2_NC; ++k)
+      os[(r * TW + lane) * DF2_CKP + grp * DF2_NC + k] = acc[k] * inv_c;
+    __syncthreads();
+    store_feat<T, VB, DF2_CK, DF2_CKP>(df2, os, b, H, W, C, c0, ck, y0, x0, DF2_TH);
+  }
+}
+
+// ------------------------------------------------------------- entries
+
+// The widest vector (16, 8 or 4 bytes) that every pixel row of the tensors
+// at these addresses starts on, else one element.
+static int vec_bytes(const void* a, const void* b, int C, int esz) {
+  for (int vb = 16; vb > esz; vb /= 2)
+    if ((C * esz) % vb == 0 && (uintptr_t)a % vb == 0 && (uintptr_t)b % vb == 0) return vb;
+  return esz;
+}
+
+template <typename K>
+static cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, int VB>
+static int launch_fwd(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
+                      cudaStream_t s) {
+  auto k = corr_fwd_kernel<T, VB>;
+  cudaError_t e = allow_smem(k, FWD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TW - 1) / TW, (H + FWD_TH - 1) / FWD_TH, B);
+  k<<<grid, FWD_THREADS, FWD_SMEM, s>>>((const T*)f1, (const T*)f2, (T*)out, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VB>
+static int launch_df1(const void* g, const void* f2, void* df1, int B, int H, int W, int C,
+                      cudaStream_t s) {
+  auto k = corr_bwd_df1_kernel<T, VB>;
+  cudaError_t e = allow_smem(k, df1_smem<T>());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TW - 1) / TW, (H + DF1_TH - 1) / DF1_TH, B);
+  k<<<grid, DF1_THREADS, df1_smem<T>(), s>>>((const T*)g, (const T*)f2, (T*)df1, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VB>
+static int launch_df2(const void* g, const void* f1, void* df2, int B, int H, int W, int C,
+                      cudaStream_t s) {
+  auto k = corr_bwd_df2_kernel<T, VB>;
+  cudaError_t e = allow_smem(k, df2_smem<T>());
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((W + TW - 1) / TW, (H + DF2_TH - 1) / DF2_TH, B);
+  k<<<grid, DF2_THREADS, df2_smem<T>(), s>>>((const T*)g, (const T*)f1, (T*)df2, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+// One launch of LAUNCH<T, VB> for the vector width that the feature pointers
+// a and b and the channel count allow.
+#define DISPATCH(LAUNCH, T, a, b, ...)                                        \
+  switch (vec_bytes(a, b, C, (int)sizeof(T))) {                               \
+    case 16: return LAUNCH<T, 16>(__VA_ARGS__);                               \
+    case 8: return LAUNCH<T, 8>(__VA_ARGS__);                                 \
+    case 4: return LAUNCH<T, 4>(__VA_ARGS__);                                 \
+    default: return LAUNCH<T, (int)sizeof(T)>(__VA_ARGS__);                   \
+  }
+
+// Arguments the tiles do not take: another md, C < 1, a grid too tall.
+static bool bad_args(int dtype, int B, int H, int C, int md, int th) {
+  return md != MD || C < 1 || (dtype != kBF16 && dtype != kF32) || B > 65535 ||
+         (H + th - 1) / th > 65535;
+}
+
+// f1, f2 [B,H,W,C] -> out [B,H,W,81], all of dtype (bf16 | f32); md must be 4.
 extern "C" int corr_fwd(const void* f1, const void* f2, void* out, int dtype,
                         int B, int H, int W, int C, int md, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)B * H * W * (2 * md + 1) * (2 * md + 1);
-  if (n == 0) return (int)cudaGetLastError();
-  const int t = 256;
-  if (dtype == kBF16)
-    corr_fwd_kernel<__nv_bfloat16><<<blocks_for(n, t), t, 0, s>>>(
-        (const __nv_bfloat16*)f1, (const __nv_bfloat16*)f2, (__nv_bfloat16*)out,
-        H, W, C, md, n);
-  else if (dtype == kF32)
-    corr_fwd_kernel<float><<<blocks_for(n, t), t, 0, s>>>(
-        (const float*)f1, (const float*)f2, (float*)out, H, W, C, md, n);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if ((long long)B * H * W == 0) return (int)cudaGetLastError();
+  if (bad_args(dtype, B, H, C, md, FWD_TH)) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16) {
+    DISPATCH(launch_fwd, __nv_bfloat16, f1, f2, f1, f2, out, B, H, W, C, s)
+  }
+  DISPATCH(launch_fwd, float, f1, f2, f1, f2, out, B, H, W, C, s)
 }
 
-// g [B,H,W,D], f2 [B,H,W,C] -> df1 [B,H,W,C]
+// g [B,H,W,81], f2 [B,H,W,C] -> df1 [B,H,W,C]
 extern "C" int corr_bwd_df1(const void* g, const void* f2, void* df1, int dtype,
                             int B, int H, int W, int C, int md, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)B * H * W * C;
-  if (n == 0) return (int)cudaGetLastError();
-  const int t = 256;
-  if (dtype == kBF16)
-    corr_bwd_df1_kernel<__nv_bfloat16><<<blocks_for(n, t), t, 0, s>>>(
-        (const __nv_bfloat16*)g, (const __nv_bfloat16*)f2, (__nv_bfloat16*)df1,
-        H, W, C, md, n);
-  else if (dtype == kF32)
-    corr_bwd_df1_kernel<float><<<blocks_for(n, t), t, 0, s>>>(
-        (const float*)g, (const float*)f2, (float*)df1, H, W, C, md, n);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if ((long long)B * H * W * C == 0) return (int)cudaGetLastError();
+  if (bad_args(dtype, B, H, C, md, DF1_TH)) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16) {
+    DISPATCH(launch_df1, __nv_bfloat16, f2, df1, g, f2, df1, B, H, W, C, s)
+  }
+  DISPATCH(launch_df1, float, f2, df1, g, f2, df1, B, H, W, C, s)
 }
 
-// g [B,H,W,D], f1 [B,H,W,C] -> df2 [B,H,W,C]
+// g [B,H,W,81], f1 [B,H,W,C] -> df2 [B,H,W,C]
 extern "C" int corr_bwd_df2(const void* g, const void* f1, void* df2, int dtype,
                             int B, int H, int W, int C, int md, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const long long n = (long long)B * H * W * C;
-  if (n == 0) return (int)cudaGetLastError();
-  const int t = 256;
-  if (dtype == kBF16)
-    corr_bwd_df2_kernel<__nv_bfloat16><<<blocks_for(n, t), t, 0, s>>>(
-        (const __nv_bfloat16*)g, (const __nv_bfloat16*)f1, (__nv_bfloat16*)df2,
-        H, W, C, md, n);
-  else if (dtype == kF32)
-    corr_bwd_df2_kernel<float><<<blocks_for(n, t), t, 0, s>>>(
-        (const float*)g, (const float*)f1, (float*)df2, H, W, C, md, n);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if ((long long)B * H * W * C == 0) return (int)cudaGetLastError();
+  if (bad_args(dtype, B, H, C, md, DF2_TH)) return (int)cudaErrorInvalidValue;
+  if (dtype == kBF16) {
+    DISPATCH(launch_df2, __nv_bfloat16, f1, df2, g, f1, df2, B, H, W, C, s)
+  }
+  DISPATCH(launch_df2, float, f1, df2, g, f1, df2, B, H, W, C, s)
 }
