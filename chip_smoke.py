@@ -657,8 +657,14 @@ def _profile(name, step, batch, step_ms: float, verbose: bool):
         torch.cuda.synchronize()
     events = prof.key_averages()
     # a kernel appears twice: as a device event, and in the self device time
-    # of the op that launched it; count the device events for the total
-    kernels = sorted((e for e in events if e.device_type != DeviceType.CPU),
+    # of the op that launched it; count the device events for the total. A
+    # range annotated on the device (the optimizer's step) spans kernels that
+    # are counted already, and stretches with the host: leave it out (it
+    # bears the name of its host-side range, which no kernel does).
+    host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kernels = sorted((e for e in events if e.device_type != DeviceType.CPU
+                      and not getattr(e, "is_user_annotation", False)
+                      and e.key not in host_keys),
                      key=lambda e: -e.self_device_time_total)
     ops = sorted((e for e in events if e.device_type == DeviceType.CPU),
                  key=lambda e: -e.self_device_time_total)
