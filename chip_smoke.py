@@ -16,7 +16,11 @@ uses card 0). Phases, in order; any failure exits non-zero:
    2B = 16 images, the depth warps, the SSIM maps and the splats on 8),
    forward and backward, and timed with CUDA events beside the plain
    version, a PyTorch library call where one computes the same function,
-   and the least time the card could take. Each kernel records the argument
+   and the least time the card could take. A kernel and its library call
+   get two times: "ms", 20 back-to-back calls between events (a short
+   kernel shows its wrapper's host time there), and "device_ms", the same
+   20 calls captured once in a CUDA graph and replayed between events (the
+   device time alone). Each kernel records the argument
    signatures (dtype codes and sizes) it was launched with; phase 5 fails if
    a train step launches a kernel with a signature that this phase did not
    hold against the plain version.
@@ -29,17 +33,18 @@ uses card 0). Phases, in order; any failure exits non-zero:
    bench.py's shape, a short profile of one step); the same step under
    ssim_impl="xla" (timed in the same call, for comparison); the flow step
    under flow_occ_impl="splat" (timed, its own frames/s line and profile)
-   and under the default "splat_nn"; the depth step; the geom step under
-   warp_impl="pallas", pwc_corr="pallas". Every run zeroes the launch
+   and under the default "splat_nn"; the depth step (timed briefly, and
+   profiled); the geom step under warp_impl="pallas", pwc_corr="pallas". Every run zeroes the launch
    counts just before and reads them just after, and checks finite losses,
    moved parameters of the networks the mode trains, bit-equal parameters of
    the others, the exact launch count of every kernel, and that every
    launch had a signature checked in phase 3.
 
 The last three lines of standard output are the card's name and power
-limit, one JSON object with a row per kernel (its launches, time and bound
-on the first of the paths geom, flow, depth, geom_regather that launches it,
-named in "path", and the same for every path under "by_path"), and
+limit, one JSON object with a row per kernel (its launches, times, device
+times and bound on the first of the paths geom, flow, depth, geom_regather
+that launches it, named in "path", and the same for every path under
+"by_path"), and
 {"ok": true, "device": {...}}. Details (per-shape kernel table, compiler
 report, profiles) go to chiprun_out/chip_smoke/.
 """
@@ -94,6 +99,36 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured once in a
+    CUDA graph, replayed ``replays`` times between events. No host work
+    falls between the launches, so a short kernel's time is its own and not
+    its wrapper's. A capture that fails raises (a fault of the run)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
 
 
 def max_err(a, b) -> float:
@@ -236,20 +271,26 @@ def phase_kernels():
         osz = torch.empty((), dtype=odt).element_size()
         nbytes = src.numel() * esz + 8 * n + 4 * n * osz + 24 * n
         b_ms, b_by = bound(nbytes, WARP_FLOPS_PER_PIXEL * n, "float32")
-        ms = cuda_ms(lambda: wp.warp_gather(src, ix, iy, odt), 20)
+        fwd = lambda: wp.warp_gather(src, ix, iy, odt)  # noqa: E731
         plain_ms = cuda_ms(lambda: wp.warp_gather_plain(src, ix, iy, odt), 3)
-        # yardstick, never used by the port: grid_sample of an f32 NCHW copy
-        # of the source at the same points (values only; it takes no uint8)
+        # yardsticks, never used by the port: grid_sample of an f32 NCHW copy
+        # of the source at the same points (values only; it takes no uint8),
+        # and its coordinate backward fed the rgb cotangent (no weight-sum
+        # term), for the re-gather backward
         src_nchw = src.permute(0, 3, 1, 2).float().contiguous()
         grid = torch.stack([ix / (w - 1) * 2 - 1, iy / (h - 1) * 2 - 1], -1)
-        lib_ms = cuda_ms(
-            lambda: F.grid_sample(src_nchw, grid, mode="bilinear", padding_mode="zeros",
-                                  align_corners=True), 20)
+        lib = lambda: F.grid_sample(src_nchw, grid, mode="bilinear",  # noqa: E731
+                                    padding_mode="zeros", align_corners=True)
+        g_nchw = g_rgb.permute(0, 3, 1, 2).float().contiguous()
+        lib_bwd = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
+            g_nchw, src_nchw, grid, 0, 0, True, [False, True])
+        lib_ms, lib_dev = cuda_ms(lib, 20), graph_ms(lib)
         rows.append(dict(
             kernel="warp_gather", shape=f"{sdt}[{b},{h},{w},3]->{str(odt)[6:]}",
             per_step=per_step, max_abs_err=max(errs[:2]), deriv_err=errs[2],
-            bwd_err=bwd_err, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            bwd_err=bwd_err, tol=tol, ok=ok, ms=cuda_ms(fwd, 20), device_ms=graph_ms(fwd),
+            plain_ms=plain_ms, library_ms=lib_ms, library_device_ms=lib_dev,
+            bound_ms=b_ms, bound_by=b_by,
         ))
         # warp_impl="pallas": the forward without derivative planes and the
         # re-gather backward, at the same points and cotangents
@@ -257,11 +298,12 @@ def phase_kernels():
         err_n = max(max_err(got_n[0], want[0]), max_err(got_n[1], want[1]))
         b_ms, b_by = bound(src.numel() * esz + 8 * n + 4 * n * osz,
                            WARP_NOGRAD_FLOPS_PER_PIXEL * n, "float32")
+        fwd_n = lambda: wp.warp_gather_nograd(src, ix, iy, odt)  # noqa: E731
         rows.append(dict(
             kernel="warp_gather_nograd", shape=f"{sdt}[{b},{h},{w},3]->{str(odt)[6:]}",
             per_step=regather, max_abs_err=err_n, tol=tol, ok=err_n <= tol,
-            ms=cuda_ms(lambda: wp.warp_gather_nograd(src, ix, iy, odt), 20),
-            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+            ms=cuda_ms(fwd_n, 20), device_ms=graph_ms(fwd_n), plain_ms=plain_ms,
+            library_ms=lib_ms, library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
         ))
         bk = wp.warp_gather_backward(src, ix, iy, g_rgb, g_w)
         bp = wp.warp_gather_backward_plain(src, ix, iy, g_rgb, g_w)
@@ -272,13 +314,16 @@ def phase_kernels():
             err_b = max(err_b, max_err(one[0], one_p[0]), max_err(one[1], one_p[1]))
         b_ms, b_by = bound(src.numel() * esz + 8 * n + 4 * n * osz + 8 * n,
                            WARP_BWD_FLOPS_PER_PIXEL * n, "float32")
+        bwd = lambda: wp.warp_gather_backward(src, ix, iy, g_rgb, g_w)  # noqa: E731
         rows.append(dict(
             kernel="warp_gather_bwd", shape=f"{sdt}[{b},{h},{w},3] g {str(odt)[6:]}",
             per_step=regather, max_abs_err=err_b, tol=1e-5 * scale, ok=err_b <= 1e-5 * scale,
-            ms=cuda_ms(lambda: wp.warp_gather_backward(src, ix, iy, g_rgb, g_w), 20),
+            ms=cuda_ms(bwd, 20), device_ms=graph_ms(bwd),
             plain_ms=cuda_ms(lambda: wp.warp_gather_backward_plain(src, ix, iy, g_rgb, g_w), 3),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lib_bwd, 20), library_device_ms=graph_ms(lib_bwd),
+            bound_ms=b_ms, bound_by=b_by,
         ))
+        del src_nchw, g_nchw, grid
 
     # correlation: the five PWC levels of the 2B decoder batch, bf16; f32
     # checks (on no path) at the finest level and at the coarsest, where the
@@ -325,9 +370,9 @@ def phase_kernels():
                 per_step=({"geom": 1, "flow": 1, **({"geom_regather": 1} if name == "corr_fwd" else {})}
                           if on_path else {}),
                 max_abs_err=err, tol=rel * scale, ok=err <= rel * scale,
-                ms=cuda_ms(k_fn, 20),
+                ms=cuda_ms(k_fn, 20), device_ms=graph_ms(k_fn),
                 plain_ms=cuda_ms(p_fn, 3) if name == "corr_fwd" else plain_bwd_ms,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
             ))
     # SSIM: the three loss scales of one warp direction (B = 8), bf16, and an
     # f32 check. Images in [0, 1] that differ by noise, a third of the pixels
@@ -370,20 +415,21 @@ def phase_kernels():
         esz = x.element_size()
         fb_ms, fb_by = bound(3 * n * esz, SSIM_FWD_FLOPS * n, "float32")
         bb_ms, bb_by = bound(5 * n * esz, SSIM_BWD_FLOPS * n, "float32")
+        s_fn = lambda: ss.ssim_forward(x, y)  # noqa: E731
+        b_fn = lambda: ss.ssim_backward(x, y, g)  # noqa: E731
         rows.append(dict(
             kernel="ssim_fwd", shape=f"{dts}[8,{h},{w},3]", per_step=per_step,
             max_abs_err=err_s, ring_err=ring_s, tol=tol_s, ok=err_s <= tol_s and ring_s <= tol_s,
-            ms=cuda_ms(lambda: ss.ssim_forward(x, y), 20),
+            ms=cuda_ms(s_fn, 20), device_ms=graph_ms(s_fn),
             plain_ms=cuda_ms(lambda: ss.ssim_plain(x, y), 3),
-            library_ms=None, bound_ms=fb_ms, bound_by=fb_by,
+            library_ms=None, library_device_ms=None, bound_ms=fb_ms, bound_by=fb_by,
         ))
         rows.append(dict(
             kernel="ssim_bwd", shape=f"{dts}[8,{h},{w},3]", per_step=per_step,
             max_abs_err=err_g, ring_err=ring_g, tol=g_floor, rtol=g_rtol, tol_ratio=ratio_g,
-            ok=ratio_g <= 1.0,
-            ms=cuda_ms(lambda: ss.ssim_backward(x, y, g), 20),
+            ok=ratio_g <= 1.0, ms=cuda_ms(b_fn, 20), device_ms=graph_ms(b_fn),
             plain_ms=cuda_ms(lambda: ss.ssim_backward_plain(x, y, g), 3),
-            library_ms=None, bound_ms=bb_ms, bound_by=bb_by,
+            library_ms=None, library_device_ms=None, bound_ms=bb_ms, bound_by=bb_by,
         ))
         del x, y, g, s_k, s_p, dx_k, dy_k, dx_p, dy_p
 
@@ -412,12 +458,13 @@ def phase_kernels():
         err = max_err(m_k, m_p)
         n = b * h * w
         b_ms, b_by = bound(n * 2 * flow.element_size() + 8 * n, SPLAT_FLOPS_PER_PIXEL * n, "float32")
+        sp_fn = lambda: sp.splat_mass(flow)  # noqa: E731
         rows.append(dict(
             kernel="splat_mass", shape=f"{dts}[8,{h},{w},2]" + (" >128px" if far else ""),
             per_step=per_step, max_abs_err=err, tol=tol, ok=err <= tol and scale > 1.5,
-            ms=cuda_ms(lambda: sp.splat_mass(flow), 20),
+            ms=cuda_ms(sp_fn, 20), device_ms=graph_ms(sp_fn),
             plain_ms=cuda_ms(lambda: sp.splat_mass_plain(flow), 3),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
         ))
 
     torch.cuda.synchronize()
@@ -426,13 +473,15 @@ def phase_kernels():
     with open(os.path.join(OUT_DIR, "kernels.json"), "w") as f:
         json.dump(rows, f, indent=1)
     for r in rows:
-        lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        lib = "-" if r["library_ms"] is None else (
+            f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f})")
         tol = f"{r['tol']:.3g}"
         if r.get("rtol"):
             tol += f" + {r['rtol']:g} |ref| by element, worst ratio {r['tol_ratio']:.3g}"
         log(f"kernel {r['kernel']:18s} {r['shape']:34s} err {r['max_abs_err']:.3g} "
             f"(tol {tol}) {'ok' if r['ok'] else 'MISMATCH'}  ms {r['ms']:.4f} "
-            f"plain {r['plain_ms']:.4f} lib {lib} bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"device {r['device_ms']:.4f} plain {r['plain_ms']:.4f} lib {lib} "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
     bad = [f"{r['kernel']} {r['shape']}" for r in rows if not r["ok"]]
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
@@ -619,9 +668,10 @@ def phase_train(smi: str):
     ms_f, _ = drive(flow, flow_k, 3, 5, "flow")
     _metric_line("frames/sec flow-mode fwd-bwd (b8 256x832 bf16, flow_occ_impl=splat, "
                  "PyTorch port)", ms_f, smi)
+    depth = _start("depth", {"mode": "depth"})
+    ms_d, _ = drive(depth, {"warp_gather": 6}, 2, 3, "depth")
     for name, path, overrides, per_step in (
         ("flow splat_nn", None, {"mode": "flow"}, {"warp_gather": 4, **corr, **ssim}),
-        ("depth", "depth", {"mode": "depth"}, {"warp_gather": 6}),
         ("geom warp_impl=pallas pwc_corr=pallas", "geom_regather",
          {"warp_impl": "pallas", "pwc_corr": "pallas"},
          {"warp_gather_nograd": 6, "warp_gather_bwd": 6, "corr_fwd": 5, **ssim}),
@@ -634,6 +684,7 @@ def phase_train(smi: str):
     dev_g, n_g = _profile(geom["name"], geom["step"], geom["batch"], ms_g, verbose=True)
     dev_x, n_x = _profile(xla["name"], xla["step"], xla["batch"], ms_x, verbose=False)
     _profile(flow["name"], flow["step"], flow["batch"], ms_f, verbose=True)
+    _profile(depth["name"], depth["step"], depth["batch"], ms_d, verbose=False)
     log(f"geom step, ssim_impl=pallas vs xla in this call: {ms_g:.1f} vs {ms_x:.1f} ms/step "
         f"(10 timed steps each), then {ms_g2:.1f} vs {ms_x2:.1f} (5 each, in the other order); "
         f"{n_g} vs {n_x} kernel launches/step, device time {dev_g:.1f} vs {dev_x:.1f} ms/step, "
@@ -725,10 +776,12 @@ def main():
 
             paths[path] = {
                 "launches": launches[name], "steps": steps,
-                "ms": per_step_sum("ms"), "plain_ms": per_step_sum("plain_ms"),
+                "ms": per_step_sum("ms"), "device_ms": per_step_sum("device_ms"),
+                "plain_ms": per_step_sum("plain_ms"),
                 "bound_ms": per_step_sum("bound_ms"),
                 "bound_by": max(on_path, key=lambda rn: rn[0]["bound_ms"] * rn[1])[0]["bound_by"],
                 "library_ms": per_step_sum("library_ms"),
+                "library_device_ms": per_step_sum("library_device_ms"),
             }
         if not paths:
             fail(f"kernel {name} was not launched on any train path")

@@ -132,6 +132,48 @@ def test_correlation_kernels_match_plain_on_card(cuda, dtype, tol, hwc, offset):
         torch.testing.assert_close(x.float(), y.float(), atol=tol * max(scale, 1.0), rtol=0)
 
 
+# (B, H, W, Ho, Wo): widths 13 and 127; outputs of another size than the
+# source; odd pixel counts, so that blocks start off 16-byte boundaries
+WARP_EDGES = [(3, 9, 13, 9, 13), (2, 11, 127, 11, 127), (3, 16, 40, 7, 13),
+              (1, 5, 127, 33, 29)]
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("shape", WARP_EDGES)
+@pytest.mark.parametrize(
+    "src_dtype,out_dtype,tol",
+    [
+        (torch.uint8, torch.float32, 1e-5),
+        (torch.uint8, torch.bfloat16, 8e-3),  # one bf16 rounding of values <= 1
+        (torch.bfloat16, torch.bfloat16, 8e-3),
+        (torch.float32, torch.float32, 1e-5),
+    ],
+)
+def test_warp_gather_edges_on_card(cuda, src_dtype, out_dtype, tol, shape, offset):
+    """The forward with derivative planes at ragged sizes, from a source and
+    coordinates one element off their allocation (``offset``): rgb and
+    weight sum (tol) and the f32 planes (1e-5) against the plain version."""
+    b, h, w, ho, wo = shape
+    rng = np.random.RandomState(14)
+    u8 = rng.randint(0, 256, (b, h, w, 3), np.uint8)
+    src = _on_card(u8 if src_dtype == torch.uint8 else u8 / 255.0, cuda, src_dtype, offset)
+    ix = rng.uniform(-3, w + 2, (b, ho, wo))
+    iy = rng.uniform(-3, h + 2, (b, ho, wo))
+    # none within 0.01 px of an integer (where the floor's derivative is ambiguous)
+    ix, iy = (np.floor(a) + np.clip(a - np.floor(a), 0.01, 0.99) for a in (ix, iy))
+    ixt, iyt = (_on_card(a, cuda, torch.float32, offset) for a in (ix, iy))
+    assert not offset or src.data_ptr() % 16 and ixt.data_ptr() % 16
+    before = tw.WARP_GATHER.launches
+    got = tw.warp_gather(src, ixt, iyt, out_dtype)
+    torch.cuda.synchronize()
+    assert tw.WARP_GATHER.launches == before + 1
+    want = tw.warp_gather_plain(src, ixt, iyt, out_dtype)
+    assert [tuple(t.shape) for t in got] == [(b, ho, wo, 3), (b, ho, wo, 1), (b, ho, wo, 6)]
+    for g, wt, t in zip(got, want, (tol, tol, 1e-5)):
+        assert g.dtype == wt.dtype and g.is_contiguous()
+        torch.testing.assert_close(g.float(), wt.float(), atol=t, rtol=0)
+
+
 @pytest.mark.parametrize(
     "src_dtype,out_dtype,tol",
     [
@@ -194,7 +236,16 @@ def _ssim_inputs(shape, seed):
     return x * keep, y * keep, g
 
 
-@pytest.mark.parametrize("shape", [(2, 37, 53, 3), (1, 16, 128, 3), (2, 5, 3, 1)])
+# (B, H, W, C, offset): odd sizes; widths that are not a multiple of the
+# backward's 30-pixel tile (53, 208, 61); a frame smaller than the tile
+# (3 x 5; 5 x 3); the smallest path scale (64 x 208); C = 1 and C = 4; and
+# inputs one element off their allocation
+SSIM_SHAPES = [(2, 37, 53, 3, False), (1, 16, 128, 3, False), (2, 5, 3, 1, False),
+               (1, 3, 5, 3, False), (2, 64, 208, 3, False), (1, 31, 61, 4, False),
+               (2, 37, 53, 3, True), (1, 3, 5, 3, True)]
+
+
+@pytest.mark.parametrize("shape", SSIM_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssim_kernels_match_plain_on_card(cuda, shape, dtype):
     """The SSIM map and both gradients of the closed-form backward against
@@ -208,7 +259,8 @@ def test_ssim_kernels_match_plain_on_card(cuda, shape, dtype):
     to one bf16 ulp of its own value (8e-3 relative) plus 1e-5 of the
     largest gradient for the elements near zero, where the f32 sums cancel.
     """
-    x, y, g = (torch.from_numpy(a).to(cuda, dtype) for a in _ssim_inputs(shape, 11))
+    *shape, offset = shape
+    x, y, g = (_on_card(a, cuda, dtype, offset) for a in _ssim_inputs(shape, 11))
     counts = (tss.SSIM_FWD.launches, tss.SSIM_BWD.launches)
     s = tss.ssim_forward(x, y)
     dx, dy = tss.ssim_backward(x, y, g)
@@ -337,5 +389,8 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda):
         tss.ssim_forward(f, f)
     with pytest.raises(TypeError):
         tss.ssim_backward(f, f, f)
+    f5 = torch.zeros((1, 4, 4, 5), device=cuda)  # more channels than the backward takes
+    with pytest.raises(ValueError):
+        tss.ssim_backward(f5, f5, f5)
     with pytest.raises(TypeError):
         tsp.splat_mass(torch.zeros((1, 4, 4, 2), dtype=torch.float16, device=cuda))

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -101,35 +102,54 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One C entry of a csrc library, with its launch count."""
+    """One C entry of a csrc library, with its launch count.
 
-    def __init__(self, library: str, symbol: str, argtypes: list):
+    ``optional`` names the positions of the pointer arguments that may be
+    None (a null pointer): whether each was given is part of the signature.
+    The ctypes binding is made at the first call; a call costs the argument
+    conversions, the stream lookup and the signature.
+    """
+
+    def __init__(self, library: str, symbol: str, argtypes: list, optional: tuple = ()):
         self.library = library
         self.symbol = symbol
         self.source = f"unsupervised_depth_opticalflow_egomotion_torch/csrc/{library}.cu"
         self._argtypes = [*argtypes, ctypes.c_void_p]  # + stream
+        # every C entry takes at least two integers, so this returns a tuple
+        self._pick_ints = operator.itemgetter(
+            *(i for i, t in enumerate(argtypes) if t is ctypes.c_int))
+        self._optional = tuple(optional)
         self._fn = None
         self.launches = 0
         self.seen: set[tuple] = set()
 
     def __call__(self, *args) -> None:
-        if self._fn is None:
+        fn = self._fn
+        if fn is None:
             fn = getattr(load(self.library), self.symbol)
             fn.argtypes = self._argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        err = fn(*args, _raw_stream())
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
         self.launches += 1
         self.seen.add(self.signature(*args))
 
     def signature(self, *args) -> tuple:
-        """The integer arguments of a launch (dtype codes and sizes), and for
-        each pointer whether it was given: what tells two launches apart."""
-        return tuple(
-            a if t is ctypes.c_int else a is not None for a, t in zip(args, self._argtypes)
-        )
+        """The integer arguments of a launch (dtype codes and sizes), then for
+        each optional pointer whether it was given: what tells two launches
+        apart."""
+        sig = self._pick_ints(args)
+        if self._optional:
+            sig += tuple(args[i] is not None for i in self._optional)
+        return sig
+
+
+def _raw_stream() -> int:
+    """The handle of the current CUDA stream of the current device, without
+    building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, shape=None) -> None:
@@ -138,7 +158,7 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, shape=None) -> None:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")

@@ -31,7 +31,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 SSIM_FWD = CudaKernel("ssim", "ssim_fwd", [_P, _P, _P, _I, _I, _I, _I, _I])
-SSIM_BWD = CudaKernel("ssim", "ssim_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+SSIM_BWD = CudaKernel("ssim", "ssim_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+SSIM_BWD_MAX_C = 4  # the channels the backward kernel takes (csrc/ssim.cu)
 
 C1 = 0.01**2
 C2 = 0.03**2
@@ -94,7 +95,7 @@ def _check_pair(x: torch.Tensor, y: torch.Tensor) -> None:
 
 def ssim_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """SSIM map: the kernel on CUDA tensors, the plain version on CPU."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ssim_plain(x, y)
     _check_pair(x, y)
     out = torch.empty_like(x)
@@ -105,17 +106,17 @@ def ssim_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def ssim_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor):
     """(dx, dy) of the SSIM map for cotangent ``g`` (input dtype): the kernel
     on CUDA tensors, the plain closed form on CPU."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ssim_backward_plain(x, y, g)
     _check_pair(x, y)
     check_cuda_tensor("g", g, (x.dtype,), x.shape)
+    if x.shape[3] > SSIM_BWD_MAX_C:
+        raise ValueError(f"ssim_backward: the kernel takes C <= {SSIM_BWD_MAX_C}, got {x.shape[3]}")
     dx = torch.empty_like(x)
     dy = torch.empty_like(y)
-    # the four f32 cotangent planes between the kernel's two passes
-    scratch = torch.empty((*x.shape, 4), device=x.device, dtype=torch.float32)
     SSIM_BWD(
         x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        scratch.data_ptr(), DTYPE_CODE[x.dtype], *x.shape,
+        DTYPE_CODE[x.dtype], *x.shape,
     )
     return dx, dy
 

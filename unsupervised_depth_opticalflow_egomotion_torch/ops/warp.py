@@ -54,6 +54,7 @@ WARP_GATHER_NOGRAD = CudaKernel(
 WARP_GATHER_BWD = CudaKernel(
     "warp_gather", "warp_gather_bwd",
     [_P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I],
+    optional=(4, 5),  # g_rgb, g_w
 )
 
 WARP_IMPLS = ("xla", "pallas", "pallas_fused")
@@ -171,14 +172,14 @@ def warp_gather(src, ix, iy, out_dtype):
     [B,Ho,Wo,6] = d(rgb)/dix, d(rgb)/diy). uint8 sources are scaled by
     1/255. CUDA tensors launch the kernel; CPU tensors take the plain version.
     """
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return warp_gather_plain(src, ix, iy, out_dtype)
     _check_gather_args(src, ix, iy, out_dtype)
     b, h, w, _ = src.shape
     _, ho, wo = ix.shape
-    rgb = torch.empty((b, ho, wo, 3), device=src.device, dtype=out_dtype)
-    wsum = torch.empty((b, ho, wo, 1), device=src.device, dtype=out_dtype)
-    dplanes = torch.empty((b, ho, wo, 6), device=src.device, dtype=torch.float32)
+    rgb = src.new_empty((b, ho, wo, 3), dtype=out_dtype)
+    wsum = src.new_empty((b, ho, wo, 1), dtype=out_dtype)
+    dplanes = src.new_empty((b, ho, wo, 6), dtype=torch.float32)
     WARP_GATHER(
         src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
         rgb.data_ptr(), wsum.data_ptr(), dplanes.data_ptr(),
@@ -189,13 +190,13 @@ def warp_gather(src, ix, iy, out_dtype):
 
 def warp_gather_nograd(src, ix, iy, out_dtype):
     """``warp_gather`` without the derivative planes: (rgb, weight_sum)."""
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return warp_gather_plain(src, ix, iy, out_dtype)[:2]
     _check_gather_args(src, ix, iy, out_dtype)
     b, h, w, _ = src.shape
     _, ho, wo = ix.shape
-    rgb = torch.empty((b, ho, wo, 3), device=src.device, dtype=out_dtype)
-    wsum = torch.empty((b, ho, wo, 1), device=src.device, dtype=out_dtype)
+    rgb = src.new_empty((b, ho, wo, 3), dtype=out_dtype)
+    wsum = src.new_empty((b, ho, wo, 1), dtype=out_dtype)
     WARP_GATHER_NOGRAD(
         src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
         rgb.data_ptr(), wsum.data_ptr(), DTYPE_CODE[out_dtype], b, h, w, ho, wo,
@@ -239,7 +240,7 @@ def warp_gather_backward(src, ix, iy, g_rgb, g_w):
     the cotangents ``g_rgb`` [B,Ho,Wo,3] and ``g_w`` [B,Ho,Wo,1] (either may
     be None), by gathering the taps again. CUDA tensors launch the kernel;
     CPU tensors take the plain version."""
-    if src.device.type == "cpu":
+    if src.is_cpu:
         return warp_gather_backward_plain(src, ix, iy, g_rgb, g_w)
     given = [g for g in (g_rgb, g_w) if g is not None]
     if not given:
