@@ -14,8 +14,10 @@ uses card 0). Phases, in order; any failure exits non-zero:
    the card, at every shape and dtype that the train steps of phase 5 give
    it (b8, 256x832: the geom and flow warps and the cost volumes run on
    2B = 16 images, the depth warps, the SSIM maps and the splats on 8),
-   forward and backward, and timed with CUDA events beside the plain
-   version, a PyTorch library call where one computes the same function,
+   forward and backward, plus cases on no path (f32, five SSIM channels,
+   smooth and near-zero splat flows, flows of more than 128 px), and timed
+   with CUDA events beside the plain version, a PyTorch library call where
+   one computes the same function,
    and the least time the card could take. A kernel and its library call
    get two times: "ms", 20 back-to-back calls between events (a short
    kernel shows its wrapper's host time there), and "device_ms", the same
@@ -221,6 +223,7 @@ def phase_kernels():
     import torch
     import torch.nn.functional as F
 
+    from unsupervised_depth_opticalflow_egomotion_torch.kernel_times import splat_flow
     from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume as cv
     from unsupervised_depth_opticalflow_egomotion_torch.ops import splat as sp
     from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as ss
@@ -350,12 +353,12 @@ def phase_kernels():
                          lambda: cv.correlation_plain(f1, f2, md),
                          2 * pix * c * esz + pix * nd * esz),
             "corr_bwd_df1": (df1, p1, lambda: cv.CORR_BWD_DF1(
-                g.data_ptr(), f2.data_ptr(), torch.empty_like(f1).data_ptr(),
+                g.get_device(), g.data_ptr(), f2.data_ptr(), torch.empty_like(f1).data_ptr(),
                 cv.DTYPE_CODE[dt], b, h, w, c, md),
                 lambda: cv.correlation_backward_plain(g, f1, f2, md),
                 pix * nd * esz + 2 * pix * c * esz),
             "corr_bwd_df2": (df2, p2, lambda: cv.CORR_BWD_DF2(
-                g.data_ptr(), f1.data_ptr(), torch.empty_like(f1).data_ptr(),
+                g.get_device(), g.data_ptr(), f1.data_ptr(), torch.empty_like(f1).data_ptr(),
                 cv.DTYPE_CODE[dt], b, h, w, c, md),
                 None, pix * nd * esz + 2 * pix * c * esz),
         }
@@ -374,20 +377,23 @@ def phase_kernels():
                 plain_ms=cuda_ms(p_fn, 3) if name == "corr_fwd" else plain_bwd_ms,
                 library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
             ))
-    # SSIM: the three loss scales of one warp direction (B = 8), bf16, and an
-    # f32 check. Images in [0, 1] that differ by noise, a third of the pixels
-    # zeroed in both (as the loss's mask products do). Value, both gradients,
-    # and the border ring (where the zero padding acts) on its own.
+    # SSIM: the three loss scales of one warp direction (B = 8), bf16, and
+    # checks on no path: f32, and five channels (more than the kernels take:
+    # the wrapper lays them out as one-channel images). Images in [0, 1] that
+    # differ by noise, a third of the pixels zeroed in both (as the loss's
+    # mask products do). Value, both gradients, and the border ring (where
+    # the zero padding acts) on its own.
     three = {"geom": 2, "flow": 2, "geom_regather": 2}
-    cases = [(256, 832, "bfloat16", three), (128, 416, "bfloat16", three),
-             (64, 208, "bfloat16", three), (256, 832, "float32", {})]
-    for h, w, dts, per_step in cases:
+    cases = [(256, 832, 3, "bfloat16", three), (128, 416, 3, "bfloat16", three),
+             (64, 208, 3, "bfloat16", three), (256, 832, 3, "float32", {}),
+             (64, 208, 5, "bfloat16", {})]
+    for h, w, c, dts, per_step in cases:
         b, dt = 8, getattr(torch, dts)
-        x = torch.rand(b, h, w, 3, generator=gen)
-        y = (x + 0.2 * torch.randn(b, h, w, 3, generator=gen)).clamp(0, 1)
+        x = torch.rand(b, h, w, c, generator=gen)
+        y = (x + 0.2 * torch.randn(b, h, w, c, generator=gen)).clamp(0, 1)
         keep = (torch.rand(b, h, w, 1, generator=gen) > 0.33).float()
         x, y = (x * keep).to(dev, dt), (y * keep).to(dev, dt)
-        g = torch.randn(b, h, w, 3, generator=gen).to(dev, dt)
+        g = torch.randn(b, h, w, c, generator=gen).to(dev, dt)
         s_k = ss.ssim_forward(x, y)
         dx_k, dy_k = ss.ssim_backward(x, y, g)
         s_p = ss.ssim_plain(x, y)
@@ -418,14 +424,14 @@ def phase_kernels():
         s_fn = lambda: ss.ssim_forward(x, y)  # noqa: E731
         b_fn = lambda: ss.ssim_backward(x, y, g)  # noqa: E731
         rows.append(dict(
-            kernel="ssim_fwd", shape=f"{dts}[8,{h},{w},3]", per_step=per_step,
+            kernel="ssim_fwd", shape=f"{dts}[8,{h},{w},{c}]", per_step=per_step,
             max_abs_err=err_s, ring_err=ring_s, tol=tol_s, ok=err_s <= tol_s and ring_s <= tol_s,
             ms=cuda_ms(s_fn, 20), device_ms=graph_ms(s_fn),
             plain_ms=cuda_ms(lambda: ss.ssim_plain(x, y), 3),
             library_ms=None, library_device_ms=None, bound_ms=fb_ms, bound_by=fb_by,
         ))
         rows.append(dict(
-            kernel="ssim_bwd", shape=f"{dts}[8,{h},{w},3]", per_step=per_step,
+            kernel="ssim_bwd", shape=f"{dts}[8,{h},{w},{c}]", per_step=per_step,
             max_abs_err=err_g, ring_err=ring_g, tol=g_floor, rtol=g_rtol, tol_ratio=ratio_g,
             ok=ratio_g <= 1.0, ms=cuda_ms(b_fn, 20), device_ms=graph_ms(b_fn),
             plain_ms=cuda_ms(lambda: ss.ssim_backward_plain(x, y, g), 3),
@@ -434,19 +440,23 @@ def phase_kernels():
         del x, y, g, s_k, s_p, dx_k, dy_k, dx_p, dy_p
 
     # splat: the four flow scales of one direction (B = 8), bf16 as on the
-    # path, flows of a few pixels; an f32 check; and a flow whose
-    # displacements pass 128 px and leave the frame on every side, where a
-    # windowed kernel would drop mass. The kernel's f32 atomics sum in an
+    # path, random flows of +-4 px; at full size, timed but on no path, a
+    # smooth flow of a few pixels (as a trained PWC's) and a near-zero one
+    # (as at init), an f32 check, and an f32 flow whose displacements pass
+    # 128 px and leave the frame on every side, where a window without the
+    # kernel's global atomics would drop mass. The f32 atomics sum in an
     # order that changes from run to run: 1e-5 of the largest mass in f32;
-    # bf16 adds the one rounding of the output.
+    # bf16 adds the one rounding of the output. A random flow piles mass up
+    # (a largest mass above 1.5 shows that the case tests the sums).
     two = {"flow": 2}
-    cases = [(256, 832, "bfloat16", two, False), (128, 416, "bfloat16", two, False),
-             (64, 208, "bfloat16", two, False), (32, 104, "bfloat16", two, False),
-             (256, 832, "float32", {}, False), (256, 832, "float32", {}, True)]
-    for h, w, dts, per_step, far in cases:
+    cases = [(256, 832, "bfloat16", two, "random"), (128, 416, "bfloat16", two, "random"),
+             (64, 208, "bfloat16", two, "random"), (32, 104, "bfloat16", two, "random"),
+             (256, 832, "bfloat16", {}, "smooth"), (256, 832, "bfloat16", {}, "zero"),
+             (256, 832, "float32", {}, "random"), (256, 832, "float32", {}, "far")]
+    for h, w, dts, per_step, kind in cases:
         b, dt = 8, getattr(torch, dts)
-        flow = 8.0 * torch.rand(b, h, w, 2, generator=gen) - 4.0
-        if far:
+        flow = splat_flow(b, h, w, "random" if kind == "far" else kind, gen)
+        if kind == "far":
             jump = torch.rand(b, h, w, 1, generator=gen) < 0.33
             big = (3.0 * torch.rand(b, h, w, 2, generator=gen) - 1.5) * torch.tensor([w, h])
             flow = torch.where(jump, big, flow)
@@ -457,11 +467,14 @@ def phase_kernels():
         tol = (1e-5 if dt == torch.float32 else 8e-3) * scale
         err = max_err(m_k, m_p)
         n = b * h * w
-        b_ms, b_by = bound(n * 2 * flow.element_size() + 8 * n, SPLAT_FLOPS_PER_PIXEL * n, "float32")
+        # the function's bytes: the flow read once, the mass written once in
+        # the flow's type (the kernel's f32 plane is scratch)
+        b_ms, b_by = bound(n * 3 * flow.element_size(), SPLAT_FLOPS_PER_PIXEL * n, "float32")
         sp_fn = lambda: sp.splat_mass(flow)  # noqa: E731
         rows.append(dict(
-            kernel="splat_mass", shape=f"{dts}[8,{h},{w},2]" + (" >128px" if far else ""),
-            per_step=per_step, max_abs_err=err, tol=tol, ok=err <= tol and scale > 1.5,
+            kernel="splat_mass", shape=f"{dts}[8,{h},{w},2] {kind}",
+            per_step=per_step, max_abs_err=err, tol=tol,
+            ok=err <= tol and (scale > 1.5 or kind in ("smooth", "zero")),
             ms=cuda_ms(sp_fn, 20), device_ms=graph_ms(sp_fn),
             plain_ms=cuda_ms(lambda: sp.splat_mass_plain(flow), 3),
             library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -727,7 +740,7 @@ def _profile(name, step, batch, step_ms: float, verbose: bool):
     log(f"profile {name}: kernels {busy_ms:.1f} ms/step on the device, {busy_ms / step_ms:.1%} "
         f"of the unprofiled {step_ms:.1f} ms step; {n_launch} kernel launches/step")
     ours = [e for e in kernels if any(
-        t in e.key for t in ("warp_gather", "corr_", "ssim_", "splat_mass"))]
+        t in e.key for t in ("warp_gather", "corr_", "ssim_", "splat_"))]
     log(f"  hand-written kernels: {sum(e.self_device_time_total for e in ours) / 1e3 / n:.2f} "
         f"ms/step in {sum(e.count for e in ours) // n} launches")
     if not verbose:

@@ -237,12 +237,17 @@ def _ssim_inputs(shape, seed):
 
 
 # (B, H, W, C, offset): odd sizes; widths that are not a multiple of the
-# backward's 30-pixel tile (53, 208, 61); a frame smaller than the tile
-# (3 x 5; 5 x 3); the smallest path scale (64 x 208); C = 1 and C = 4; and
-# inputs one element off their allocation
+# backward's 30-pixel tile (53, 208, 61) or of the forward's 256-element
+# (f32: 128) tile row (13, 127: 39 and 381 elements); frames smaller than
+# a tile (3 x 5; 5 x 3; 9 x 13); heights that are not a multiple of the
+# tiles' 32 rows (37, 33); the smallest path scale (64 x 208); C = 1, 4 and
+# 5 (more than the kernels take: one-channel images); and inputs one
+# element off their allocation
 SSIM_SHAPES = [(2, 37, 53, 3, False), (1, 16, 128, 3, False), (2, 5, 3, 1, False),
                (1, 3, 5, 3, False), (2, 64, 208, 3, False), (1, 31, 61, 4, False),
-               (2, 37, 53, 3, True), (1, 3, 5, 3, True)]
+               (2, 37, 53, 3, True), (1, 3, 5, 3, True), (1, 9, 13, 3, False),
+               (2, 33, 127, 3, True), (1, 37, 127, 1, False), (2, 9, 13, 4, True),
+               (2, 11, 13, 5, False), (1, 37, 127, 5, True)]
 
 
 @pytest.mark.parametrize("shape", SSIM_SHAPES)
@@ -290,27 +295,50 @@ def test_ssim_kernels_match_plain_on_card(cuda, shape, dtype):
     torch.testing.assert_close(yr.grad, dy)
 
 
-def _splat_flow(b, h, w, seed, far):
-    """A flow of a few pixels; with ``far``, a third of the pixels move up
-    to 1.5 frame widths, so targets leave the frame on every side."""
+def _splat_flow(b, h, w, seed, kind):
+    """A flow [B,H,W,2]: "random", uniform in +-4 px; "smooth", a field of
+    a few px that varies over tens of pixels (as a trained PWC's), plus a
+    little noise; "zero", near-zero (as at init); "far", random with a
+    third of the pixels moving up to 1.5 frame widths, so that targets
+    leave the frame on every side; "mixed", uniform in +-9 px, on both
+    sides of the kernel's 7 px between its gather and its scatter of far
+    sources (and exactly at it); "nonfinite", random with NaN and +-inf
+    elements."""
     rng = np.random.RandomState(seed)
     flow = rng.uniform(-4, 4, (b, h, w, 2))
-    if far:
+    if kind == "smooth":
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        field = np.stack([3 * np.sin(yy / 17 + xx / 29), 2 * np.cos(xx / 23)], -1)
+        flow = field[None] + 0.3 * rng.randn(b, h, w, 2)
+    elif kind == "zero":
+        flow = 1e-3 * rng.randn(b, h, w, 2)
+    elif kind == "far":
         jump = rng.rand(b, h, w, 1) < 0.33
         flow = np.where(jump, rng.uniform(-1.5, 1.5, (b, h, w, 2)) * [w, h], flow)
+    elif kind == "mixed":
+        flow = rng.uniform(-9, 9, (b, h, w, 2))
+        flow[0, 0, :4, 0] = [7.0, -7.0, 7.001, 8.0]
+    elif kind == "nonfinite":
+        flow[0, 1, 2, 0], flow[0, 2, 3, 1], flow[-1, h // 2, w // 2, 0] = np.nan, np.inf, -np.inf
     return flow.astype(np.float32)
 
 
-@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("kind,offset", [("random", False), ("smooth", True), ("zero", False),
+                                         ("far", False), ("mixed", True), ("nonfinite", True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_splat_kernel_matches_plain_on_card(cuda, far, dtype):
-    """The mass [B,H,W,1] against the plain scatter, at an odd size. The
-    kernel sums f32 atomics in an order that changes from run to run: 1e-5
-    relative to the largest mass in f32; bf16 adds the output's one rounding
-    (8e-3 relative). Mass is conserved: what stays in frame sums equal."""
-    b, h, w = 2, 37, 53
-    flow = torch.from_numpy(_splat_flow(b, h, w, 12, far)).to(cuda, dtype)
-    if far:
+@pytest.mark.parametrize("bhw", [(3, 37, 53), (2, 301, 451)])
+def test_splat_kernel_matches_plain_on_card(cuda, kind, offset, dtype, bhw):
+    """The mass [B,H,W,1] against the plain scatter, from flows of every
+    kind, some one element off their allocation, at two odd B x H x W: 3 x
+    37 x 53 (below 2^18 source pixels: a thread per source) and 2 x 301 x
+    451 (the window splat, with ragged tiles). A non-finite target drops its
+    mass: the plain version gets those pixels moved far out of the frame (it
+    cannot index with a NaN). The kernel sums f32 atomics in an order that
+    changes from run to run: 1e-5 relative to the largest mass in f32; bf16
+    adds the output's one rounding (8e-3 relative)."""
+    b, h, w = bhw
+    flow = _on_card(_splat_flow(b, h, w, 12, kind), cuda, dtype, offset)
+    if kind == "far":
         t = flow.float() + tw.pixel_grid(h, w, device=cuda)[None]
         assert (t[..., 0] < -1).any() and (t[..., 0] > w).any()
         assert (t[..., 1] < -1).any() and (t[..., 1] > h).any()
@@ -318,7 +346,9 @@ def test_splat_kernel_matches_plain_on_card(cuda, far, dtype):
     got = tsp.splat_mass(flow)
     torch.cuda.synchronize()
     assert tsp.SPLAT_MASS.launches == before + 1
-    want = tsp.splat_mass_plain(flow)
+    finite = torch.isfinite(flow.float())
+    want = tsp.splat_mass_plain(torch.where(finite, flow, torch.full_like(flow, -1e6)))
+    assert torch.isfinite(got).all() and (kind == "nonfinite") != bool(finite.all())
     assert got.shape == (b, h, w, 1) and got.dtype == dtype
     scale = max(want.float().max().item(), 1.0)
     tol = 1e-5 if dtype == torch.float32 else 8e-3
@@ -375,7 +405,8 @@ def test_default_config_trains_on_card(cuda, overrides, launched):
 
 def test_cuda_tensor_never_takes_the_plain_version(cuda):
     """A CUDA tensor the kernel cannot take raises; it is not sent to the
-    plain version."""
+    plain version. (More than four SSIM channels are taken: they go to the
+    kernels as one-channel images, test_ssim_kernels_match_plain_on_card.)"""
     src = torch.zeros((1, 4, 4, 3), dtype=torch.float16, device=cuda)
     ix = torch.zeros((1, 4, 4), device=cuda)
     with pytest.raises(TypeError):
@@ -389,8 +420,7 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda):
         tss.ssim_forward(f, f)
     with pytest.raises(TypeError):
         tss.ssim_backward(f, f, f)
-    f5 = torch.zeros((1, 4, 4, 5), device=cuda)  # more channels than the backward takes
-    with pytest.raises(ValueError):
-        tss.ssim_backward(f5, f5, f5)
+    with pytest.raises(ValueError):  # the launch's tensors on two devices
+        tss.ssim_forward(f.float(), f.float().cpu())
     with pytest.raises(TypeError):
         tsp.splat_mass(torch.zeros((1, 4, 4, 2), dtype=torch.float16, device=cuda))

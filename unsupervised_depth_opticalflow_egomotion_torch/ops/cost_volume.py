@@ -74,8 +74,8 @@ def correlation_backward_plain(g, f1, f2, md: int = 4):
     return (df1 / c).to(f1.dtype), (df2 / c).to(f2.dtype)
 
 
-def _check(name, t, shape):
-    check_cuda_tensor(name, t, (torch.bfloat16, torch.float32), shape)
+def _check(name, t, shape, device=None) -> int:
+    return check_cuda_tensor(name, t, (torch.bfloat16, torch.float32), shape, device)
 
 
 def corr_forward(f1: torch.Tensor, f2: torch.Tensor, md: int = 4) -> torch.Tensor:
@@ -83,13 +83,13 @@ def corr_forward(f1: torch.Tensor, f2: torch.Tensor, md: int = 4) -> torch.Tenso
     if f1.device.type == "cpu":
         return correlation_plain(f1, f2, md)
     b, h, w, c = f1.shape
-    _check("f1", f1, None)
-    _check("f2", f2, f1.shape)
+    dev = _check("f1", f1, None)
+    _check("f2", f2, f1.shape, dev)
     if f2.dtype != f1.dtype:
         raise TypeError(f"correlation: dtypes {f1.dtype} vs {f2.dtype}")
     n = (2 * md + 1) ** 2
     out = torch.empty((b, h, w, n), device=f1.device, dtype=f1.dtype)
-    CORR_FWD(f1.data_ptr(), f2.data_ptr(), out.data_ptr(), DTYPE_CODE[f1.dtype],
+    CORR_FWD(dev, f1.data_ptr(), f2.data_ptr(), out.data_ptr(), DTYPE_CODE[f1.dtype],
              b, h, w, c, md)
     return out
 
@@ -100,16 +100,16 @@ def corr_backward(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor, md: int =
         return correlation_backward_plain(g, f1, f2, md)
     b, h, w, c = f1.shape
     n = (2 * md + 1) ** 2
-    _check("f1", f1, None)
-    _check("f2", f2, f1.shape)
-    _check("g", g, (b, h, w, n))
+    dev = _check("f1", f1, None)
+    _check("f2", f2, f1.shape, dev)
+    _check("g", g, (b, h, w, n), dev)
     if not (g.dtype == f1.dtype == f2.dtype):
         raise TypeError(f"correlation bwd: dtypes {g.dtype}, {f1.dtype}, {f2.dtype}")
     code = DTYPE_CODE[f1.dtype]
     df1 = torch.empty_like(f1)
     df2 = torch.empty_like(f2)
-    CORR_BWD_DF1(g.data_ptr(), f2.data_ptr(), df1.data_ptr(), code, b, h, w, c, md)
-    CORR_BWD_DF2(g.data_ptr(), f1.data_ptr(), df2.data_ptr(), code, b, h, w, c, md)
+    CORR_BWD_DF1(dev, g.data_ptr(), f2.data_ptr(), df1.data_ptr(), code, b, h, w, c, md)
+    CORR_BWD_DF2(dev, g.data_ptr(), f1.data_ptr(), df2.data_ptr(), code, b, h, w, c, md)
     return df1, df2
 
 

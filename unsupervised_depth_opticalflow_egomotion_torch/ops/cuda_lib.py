@@ -13,6 +13,12 @@ else, so a run can show that its main path went through the kernel. It also
 keeps the set of argument signatures it was launched with (``seen``), so a
 run can show that every shape and dtype its path gave the kernel was one
 that had been held against the plain version.
+
+A launch goes to the card its tensors lie on: ``check_cuda_tensor`` returns
+a tensor's device index and refuses the tensors of one launch that lie on
+different cards, and ``CudaKernel`` takes that index first, launches on the
+current stream of that device, and enters the device's context only when it
+is not the current one.
 """
 
 from __future__ import annotations
@@ -107,7 +113,7 @@ class CudaKernel:
     ``optional`` names the positions of the pointer arguments that may be
     None (a null pointer): whether each was given is part of the signature.
     The ctypes binding is made at the first call; a call costs the argument
-    conversions, the stream lookup and the signature.
+    conversions, the current device and its stream, and the signature.
     """
 
     def __init__(self, library: str, symbol: str, argtypes: list, optional: tuple = ()):
@@ -123,14 +129,20 @@ class CudaKernel:
         self.launches = 0
         self.seen: set[tuple] = set()
 
-    def __call__(self, *args) -> None:
+    def __call__(self, device: int, *args) -> None:
+        """Launch with ``args`` on CUDA device ``device`` (the index of the
+        card the launch's tensors lie on), on its current stream."""
         fn = self._fn
         if fn is None:
             fn = getattr(load(self.library), self.symbol)
             fn.argtypes = self._argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = fn(*args, _raw_stream())
+        if device == _current_device():
+            err = fn(*args, _raw_stream(device))
+        else:
+            with _device_context(device):
+                err = fn(*args, _raw_stream(device))
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} at launch")
         self.launches += 1
@@ -146,19 +158,32 @@ class CudaKernel:
         return sig
 
 
-def _raw_stream() -> int:
-    """The handle of the current CUDA stream of the current device, without
-    building a ``torch.cuda.Stream`` object."""
-    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+def _current_device() -> int:
+    return torch._C._cuda_getDevice()
 
 
-def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, shape=None) -> None:
-    """Validate a tensor handed to a kernel (device, dtype, shape, layout)."""
+def _raw_stream(device: int) -> int:
+    """The handle of the current CUDA stream of ``device``, without building
+    a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+_device_context = torch.cuda.device  # makes a device current for a block
+
+
+def check_cuda_tensor(name: str, t: torch.Tensor, dtypes, shape=None, device=None) -> int:
+    """Validate a tensor handed to a kernel (device, dtype, shape, layout)
+    and return the index of its card. ``device``: the card of the launch's
+    other tensors, which this one must share."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    index = t.get_device()
+    if device is not None and index != device:
+        raise ValueError(f"{name}: on cuda:{index}, the launch's other tensors on cuda:{device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: dtype {t.dtype} not in {dtypes}")
     if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+    return index

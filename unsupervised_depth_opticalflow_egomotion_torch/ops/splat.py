@@ -6,9 +6,12 @@ image of ones along a flow; pixels that receive ~0 mass are occluded in the
 target. Targets are computed in f32 whatever the flow's dtype.
 
 - ``splat_mass`` (the kernel): the unit-mass bilinear splat. On a CUDA tensor
-  it launches csrc/splat.cu (``SPLAT_MASS``: one atomicAdd per in-frame tap);
-  on a CPU tensor it runs ``splat_mass_plain``. It is exact at any
-  displacement, so the JAX package's window guard has no counterpart.
+  it makes one call of csrc/splat.cu (``SPLAT_MASS``: it zero-fills an f32
+  plane, splats into it, summing each source tile's taps in a shared-memory
+  window first, and casts a bf16 flow's mass from it); on a CPU tensor it
+  runs ``splat_mass_plain``.
+  It is exact at any displacement, so the JAX package's window guard has
+  no counterpart.
   Atomic sums are taken in an order that changes from run to run: the mass
   agrees with the plain version to f32 rounding (about 1e-5 of a mass that
   reaches a few units), not bit for bit.
@@ -28,7 +31,7 @@ from .warp import pixel_grid
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-SPLAT_MASS = CudaKernel("splat", "splat_mass", [_P, _I, _P, _I, _I, _I])
+SPLAT_MASS = CudaKernel("splat", "splat_mass", [_P, _I, _P, _P, _I, _I, _I])
 
 OCC_TAPS = ("bilinear", "bilinear_xla", "nearest", "nearest_half")
 
@@ -93,13 +96,16 @@ def splat_mass(flow: torch.Tensor) -> torch.Tensor:
     the kernel on CUDA tensors, the plain version on CPU. No gradient."""
     if flow.device.type == "cpu":
         return splat_mass_plain(flow)
-    check_cuda_tensor("flow", flow, (torch.bfloat16, torch.float32))
+    dev = check_cuda_tensor("flow", flow, (torch.bfloat16, torch.float32))
     if flow.dim() != 4 or flow.shape[-1] != 2:
         raise ValueError(f"splat_mass: expected [B,H,W,2], got {tuple(flow.shape)}")
     b, h, w, _ = flow.shape
-    mass = torch.zeros((b, h, w), device=flow.device, dtype=torch.float32)
-    SPLAT_MASS(flow.data_ptr(), DTYPE_CODE[flow.dtype], mass.data_ptr(), b, h, w)
-    return mass[..., None].to(flow.dtype)
+    mass = flow.new_empty((b, h, w, 1))
+    # the f32 plane the taps are summed in: the output itself for an f32 flow
+    plane = mass if flow.dtype == torch.float32 else flow.new_empty((b, h, w), dtype=torch.float32)
+    SPLAT_MASS(dev, flow.data_ptr(), DTYPE_CODE[flow.dtype], plane.data_ptr(), mass.data_ptr(),
+               b, h, w)
+    return mass
 
 
 def occlusion_mask_from_flow(flow: torch.Tensor, taps: str = "bilinear") -> torch.Tensor:

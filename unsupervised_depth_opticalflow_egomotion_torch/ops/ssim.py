@@ -11,7 +11,9 @@ input's type.
 
 - "pallas" (the default): on CUDA tensors the forward and the closed-form
   backward launch csrc/ssim.cu (``SSIM_FWD``, ``SSIM_BWD``) at every scale;
-  on CPU tensors it runs ``ssim_plain`` under autograd.
+  on CPU tensors it runs ``ssim_plain`` under autograd. The kernels take 1
+  to 4 channels; an image of more goes to them as B·C one-channel images
+  (the channels do not mix), one copy in and one out.
 - "xla": ``ssim_plain`` under autograd on every device.
 
 ``ssim_backward_plain`` is the kernel backward's plain version: the same
@@ -32,7 +34,6 @@ _I = ctypes.c_int
 
 SSIM_FWD = CudaKernel("ssim", "ssim_fwd", [_P, _P, _P, _I, _I, _I, _I, _I])
 SSIM_BWD = CudaKernel("ssim", "ssim_bwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
-SSIM_BWD_MAX_C = 4  # the channels the backward kernel takes (csrc/ssim.cu)
 
 C1 = 0.01**2
 C2 = 0.03**2
@@ -86,20 +87,41 @@ def ssim_backward_plain(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor):
     return dx.to(x.dtype), dy.to(y.dtype)
 
 
-def _check_pair(x: torch.Tensor, y: torch.Tensor) -> None:
-    check_cuda_tensor("x", x, (torch.bfloat16, torch.float32))
-    check_cuda_tensor("y", y, (x.dtype,), x.shape)
+def _check_pair(x: torch.Tensor, y: torch.Tensor) -> int:
+    dev = check_cuda_tensor("x", x, (torch.bfloat16, torch.float32))
+    check_cuda_tensor("y", y, (x.dtype,), x.shape, dev)
     if x.dim() != 4:
         raise ValueError(f"ssim: expected [B,H,W,C], got {tuple(x.shape)}")
+    return dev
+
+
+def to_planes(t: torch.Tensor) -> torch.Tensor:
+    """[B,H,W,C] -> [B*C,H,W,1]: each channel as an image of its own."""
+    b, h, w, c = t.shape
+    return t.permute(0, 3, 1, 2).reshape(b * c, h, w, 1).contiguous()
+
+
+def from_planes(t: torch.Tensor, c: int) -> torch.Tensor:
+    """The inverse of ``to_planes`` for ``c`` channels."""
+    bc, h, w, _ = t.shape
+    return t.reshape(bc // c, c, h, w).permute(0, 2, 3, 1).contiguous()
 
 
 def ssim_forward(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """SSIM map: the kernel on CUDA tensors, the plain version on CPU."""
     if x.is_cpu:
         return ssim_plain(x, y)
-    _check_pair(x, y)
+    return ssim_forward_kernel(x, y)
+
+
+def ssim_forward_kernel(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's launch; more than 4 channels go as planes."""
+    dev = _check_pair(x, y)
+    c = x.shape[3]
+    if c > 4:  # the kernel's channel template takes 1 to 4
+        return from_planes(ssim_forward_kernel(to_planes(x), to_planes(y)), c)
     out = torch.empty_like(x)
-    SSIM_FWD(x.data_ptr(), y.data_ptr(), out.data_ptr(), DTYPE_CODE[x.dtype], *x.shape)
+    SSIM_FWD(dev, x.data_ptr(), y.data_ptr(), out.data_ptr(), DTYPE_CODE[x.dtype], *x.shape)
     return out
 
 
@@ -108,14 +130,21 @@ def ssim_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor):
     on CUDA tensors, the plain closed form on CPU."""
     if x.is_cpu:
         return ssim_backward_plain(x, y, g)
-    _check_pair(x, y)
-    check_cuda_tensor("g", g, (x.dtype,), x.shape)
-    if x.shape[3] > SSIM_BWD_MAX_C:
-        raise ValueError(f"ssim_backward: the kernel takes C <= {SSIM_BWD_MAX_C}, got {x.shape[3]}")
+    return ssim_backward_kernel(x, y, g)
+
+
+def ssim_backward_kernel(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor):
+    """The backward kernel's launch; more than 4 channels go as planes."""
+    dev = _check_pair(x, y)
+    check_cuda_tensor("g", g, (x.dtype,), x.shape, dev)
+    c = x.shape[3]
+    if c > 4:
+        dx, dy = ssim_backward_kernel(to_planes(x), to_planes(y), to_planes(g))
+        return from_planes(dx, c), from_planes(dy, c)
     dx = torch.empty_like(x)
     dy = torch.empty_like(y)
     SSIM_BWD(
-        x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        dev, x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr(), dy.data_ptr(),
         DTYPE_CODE[x.dtype], *x.shape,
     )
     return dx, dy

@@ -149,19 +149,20 @@ def warp_gather_plain(src, ix, iy, out_dtype):
     return rgb, wsum, dplanes
 
 
-def _check_gather_args(src, ix, iy, dtype) -> None:
+def _check_gather_args(src, ix, iy, dtype) -> int:
     """Validate the tensors of a warp-gather launch (``dtype``: the type of
-    the outputs, or of the cotangents)."""
+    the outputs, or of the cotangents); return the index of their card."""
     b, _, _, c = src.shape
-    check_cuda_tensor("src", src, (torch.uint8, torch.bfloat16, torch.float32))
+    dev = check_cuda_tensor("src", src, (torch.uint8, torch.bfloat16, torch.float32))
     if c != 3 or ix.dim() != 3 or ix.shape[0] != b:
         raise ValueError(f"warp_gather: src {tuple(src.shape)}, coords {tuple(ix.shape)}")
-    check_cuda_tensor("ix", ix, (torch.float32,))
-    check_cuda_tensor("iy", iy, (torch.float32,), ix.shape)
+    check_cuda_tensor("ix", ix, (torch.float32,), None, dev)
+    check_cuda_tensor("iy", iy, (torch.float32,), ix.shape, dev)
     if dtype not in (torch.bfloat16, torch.float32) or (
         src.dtype == torch.float32 and dtype != torch.float32
     ):
         raise TypeError(f"warp_gather: dtype {dtype} with a {src.dtype} source")
+    return dev
 
 
 def warp_gather(src, ix, iy, out_dtype):
@@ -174,14 +175,14 @@ def warp_gather(src, ix, iy, out_dtype):
     """
     if src.is_cpu:
         return warp_gather_plain(src, ix, iy, out_dtype)
-    _check_gather_args(src, ix, iy, out_dtype)
+    dev = _check_gather_args(src, ix, iy, out_dtype)
     b, h, w, _ = src.shape
     _, ho, wo = ix.shape
     rgb = src.new_empty((b, ho, wo, 3), dtype=out_dtype)
     wsum = src.new_empty((b, ho, wo, 1), dtype=out_dtype)
     dplanes = src.new_empty((b, ho, wo, 6), dtype=torch.float32)
     WARP_GATHER(
-        src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
+        dev, src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
         rgb.data_ptr(), wsum.data_ptr(), dplanes.data_ptr(),
         DTYPE_CODE[out_dtype], b, h, w, ho, wo,
     )
@@ -192,13 +193,13 @@ def warp_gather_nograd(src, ix, iy, out_dtype):
     """``warp_gather`` without the derivative planes: (rgb, weight_sum)."""
     if src.is_cpu:
         return warp_gather_plain(src, ix, iy, out_dtype)[:2]
-    _check_gather_args(src, ix, iy, out_dtype)
+    dev = _check_gather_args(src, ix, iy, out_dtype)
     b, h, w, _ = src.shape
     _, ho, wo = ix.shape
     rgb = src.new_empty((b, ho, wo, 3), dtype=out_dtype)
     wsum = src.new_empty((b, ho, wo, 1), dtype=out_dtype)
     WARP_GATHER_NOGRAD(
-        src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
+        dev, src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
         rgb.data_ptr(), wsum.data_ptr(), DTYPE_CODE[out_dtype], b, h, w, ho, wo,
     )
     return rgb, wsum
@@ -245,16 +246,16 @@ def warp_gather_backward(src, ix, iy, g_rgb, g_w):
     given = [g for g in (g_rgb, g_w) if g is not None]
     if not given:
         return torch.zeros_like(ix), torch.zeros_like(iy)
-    _check_gather_args(src, ix, iy, given[0].dtype)
+    dev = _check_gather_args(src, ix, iy, given[0].dtype)
     b, h, w, _ = src.shape
     _, ho, wo = ix.shape
     for name, g, ch in (("g_rgb", g_rgb, 3), ("g_w", g_w, 1)):
         if g is not None:
-            check_cuda_tensor(name, g, (given[0].dtype,), (b, ho, wo, ch))
+            check_cuda_tensor(name, g, (given[0].dtype,), (b, ho, wo, ch), dev)
     dix = torch.empty_like(ix)
     diy = torch.empty_like(iy)
     WARP_GATHER_BWD(
-        src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
+        dev, src.data_ptr(), DTYPE_CODE[src.dtype], ix.data_ptr(), iy.data_ptr(),
         None if g_rgb is None else g_rgb.data_ptr(),
         None if g_w is None else g_w.data_ptr(),
         DTYPE_CODE[given[0].dtype], dix.data_ptr(), diy.data_ptr(), b, h, w, ho, wo,
