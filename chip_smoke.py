@@ -25,7 +25,8 @@ uses card 0). Phases, in order; any failure exits non-zero:
    device time alone). Each kernel records the argument
    signatures (dtype codes and sizes) it was launched with; phase 5 fails if
    a train step launches a kernel with a signature that this phase did not
-   hold against the plain version.
+   hold against the plain version. The f32 shapes of the CLI's geom mask
+   dump (phase 6) are held here too.
 4. parity: one train step with the kernels on the card against the plain
    versions on the CPU, at 64x128 b2 in f32 (TF32 off), from the same seed:
    the geom step under the default Config, a flow step under
@@ -41,6 +42,16 @@ uses card 0). Phases, in order; any failure exits non-zero:
    moved parameters of the networks the mode trains, bit-equal parameters of
    the others, the exact launch count of every kernel, and that every
    launch had a signature checked in phase 3.
+6. cli: the training entry point (``train.py`` of the port) at the default
+   Config (b8 256x832 bf16, uint8 frames) on a synthetic prepared dataset
+   of PNGs in a temporary directory: flow 3 steps through the
+   occlusion switch, depth 2 steps in a subprocess (``python3 -m``), geom 8
+   steps grafted from both, a resume of geom to 10 steps with a mask dump.
+   Checks the graft, the restored tensors, checkpoints, dumps, finite
+   losses and the launch signatures; prints which loader ran and why (the
+   machine's image libraries), the CLI's steady geom frames/s beside phase
+   5's, and the loader's samples/s alone. It runs after phase 5's timed
+   steps and before phase 5's profiles.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with a row per kernel (its launches, times, device
@@ -242,7 +253,9 @@ def phase_kernels():
     # problem, from the uint8 frames at scale 0 (geom: the rigid and the flow
     # reconstruction; flow: all four flow scales); the depth step warps each
     # neighbour on its own (B = 8, two a scale) from bf16 frames. Plus one
-    # f32 case with TF32 off (on no path: checked, not summed).
+    # f32 case with TF32 off, and the f32 warps of the CLI's geom mask dump
+    # (one item: 2B = 2, f32 out; on no path of the table: checked, not
+    # summed).
     both = {"geom": 2, "flow": 1}
     cases = [
         ("uint8", 16, 256, 832, both), ("bfloat16", 16, 128, 416, both),
@@ -250,12 +263,14 @@ def phase_kernels():
         ("bfloat16", 8, 256, 832, {"depth": 2}), ("bfloat16", 8, 128, 416, {"depth": 2}),
         ("bfloat16", 8, 64, 208, {"depth": 2}),
         ("float32", 16, 256, 832, {}),
+        ("uint8", 2, 256, 832, {}, "float32"), ("float32", 2, 128, 416, {}),
+        ("float32", 2, 64, 208, {}),
     ]
-    for sdt, b, h, w, per_step in cases:
+    for sdt, b, h, w, per_step, *out in cases:
         regather = {"geom_regather": per_step["geom"]} if "geom" in per_step else {}
         u8 = torch.randint(0, 256, (b, h, w, 3), generator=gen, dtype=torch.uint8)
         src = u8.to(dev) if sdt == "uint8" else (u8.float() / 255.0).to(dev, getattr(torch, sdt))
-        odt = torch.float32 if sdt == "float32" else torch.bfloat16
+        odt = getattr(torch, out[0] if out else "float32" if sdt == "float32" else "bfloat16")
         ix, iy = _warp_coords(b, h, w, gen, dev)
         got = wp.warp_gather(src, ix, iy, odt)
         want = wp.warp_gather_plain(src, ix, iy, odt)
@@ -330,12 +345,14 @@ def phase_kernels():
 
     # correlation: the five PWC levels of the 2B decoder batch, bf16; f32
     # checks (on no path) at the finest level and at the coarsest, where the
-    # tiles' last channel chunk is partial and pixel rows are 8-byte aligned
+    # tiles' last channel chunk is partial and pixel rows are 8-byte aligned,
+    # and at the five levels of the CLI's f32 mask dump (2B = 2)
     levels = [(4, 13, 196), (8, 26, 128), (16, 52, 96), (32, 104, 64), (64, 208, 32)]
-    cases = [(h, w, c, "bfloat16", True) for h, w, c in levels] + [
-        (64, 208, 32, "float32", False), (4, 13, 196, "float32", False)]
-    for h, w, c, dts, on_path in cases:
-        b, md, nd = 16, 4, 81
+    cases = [(h, w, c, "bfloat16", True, 16) for h, w, c in levels] + [
+        (64, 208, 32, "float32", False, 16), (4, 13, 196, "float32", False, 16)] + [
+        (h, w, c, "float32", False, 2) for h, w, c in levels]
+    for h, w, c, dts, on_path, b in cases:
+        md, nd = 4, 81
         dt = getattr(torch, dts)
         f1 = (0.5 * torch.randn(b, h, w, c, generator=gen)).to(dev, dt)
         f2 = (0.5 * torch.randn(b, h, w, c, generator=gen)).to(dev, dt)
@@ -368,7 +385,7 @@ def phase_kernels():
             err = max_err(k_out, p_out)
             b_ms, b_by = bound(nbytes, 2 * macs, dts)
             rows.append(dict(
-                kernel=name, shape=f"{dts}[16,{h},{w},{c}]",
+                kernel=name, shape=f"{dts}[{b},{h},{w},{c}]",
                 # pwc_corr="pallas" launches the forward kernel only
                 per_step=({"geom": 1, "flow": 1, **({"geom_regather": 1} if name == "corr_fwd" else {})}
                           if on_path else {}),
@@ -383,12 +400,14 @@ def phase_kernels():
     # differ by noise, a third of the pixels zeroed in both (as the loss's
     # mask products do). Value, both gradients, and the border ring (where
     # the zero padding acts) on its own.
+    # The CLI's f32 mask dump takes the three scales of one item (B = 1).
     three = {"geom": 2, "flow": 2, "geom_regather": 2}
-    cases = [(256, 832, 3, "bfloat16", three), (128, 416, 3, "bfloat16", three),
-             (64, 208, 3, "bfloat16", three), (256, 832, 3, "float32", {}),
-             (64, 208, 5, "bfloat16", {})]
-    for h, w, c, dts, per_step in cases:
-        b, dt = 8, getattr(torch, dts)
+    cases = [(256, 832, 3, "bfloat16", three, 8), (128, 416, 3, "bfloat16", three, 8),
+             (64, 208, 3, "bfloat16", three, 8), (256, 832, 3, "float32", {}, 8),
+             (64, 208, 5, "bfloat16", {}, 8)] + [
+             (h, w, 3, "float32", {}, 1) for h, w in ((256, 832), (128, 416), (64, 208))]
+    for h, w, c, dts, per_step, b in cases:
+        dt = getattr(torch, dts)
         x = torch.rand(b, h, w, c, generator=gen)
         y = (x + 0.2 * torch.randn(b, h, w, c, generator=gen)).clamp(0, 1)
         keep = (torch.rand(b, h, w, 1, generator=gen) > 0.33).float()
@@ -424,14 +443,14 @@ def phase_kernels():
         s_fn = lambda: ss.ssim_forward(x, y)  # noqa: E731
         b_fn = lambda: ss.ssim_backward(x, y, g)  # noqa: E731
         rows.append(dict(
-            kernel="ssim_fwd", shape=f"{dts}[8,{h},{w},{c}]", per_step=per_step,
+            kernel="ssim_fwd", shape=f"{dts}[{b},{h},{w},{c}]", per_step=per_step,
             max_abs_err=err_s, ring_err=ring_s, tol=tol_s, ok=err_s <= tol_s and ring_s <= tol_s,
             ms=cuda_ms(s_fn, 20), device_ms=graph_ms(s_fn),
             plain_ms=cuda_ms(lambda: ss.ssim_plain(x, y), 3),
             library_ms=None, library_device_ms=None, bound_ms=fb_ms, bound_by=fb_by,
         ))
         rows.append(dict(
-            kernel="ssim_bwd", shape=f"{dts}[8,{h},{w},{c}]", per_step=per_step,
+            kernel="ssim_bwd", shape=f"{dts}[{b},{h},{w},{c}]", per_step=per_step,
             max_abs_err=err_g, ring_err=ring_g, tol=g_floor, rtol=g_rtol, tol_ratio=ratio_g,
             ok=ratio_g <= 1.0, ms=cuda_ms(b_fn, 20), device_ms=graph_ms(b_fn),
             plain_ms=cuda_ms(lambda: ss.ssim_backward_plain(x, y, g), 3),
@@ -651,7 +670,9 @@ def phase_train(smi: str):
     """Every train path at full width. All timed runs come before the first
     profile: profiling slows the host side of the steps that come after it.
     The two geom configurations are timed in turns (default, xla, xla,
-    default) so that host drift within the call shows."""
+    default) so that host drift within the call shows. Returns the launches
+    of each path's first run, the default geom step's ms, and the profiles
+    to run once every timed run (the CLI phase's too) is done."""
     import torch
 
     torch.backends.cudnn.benchmark = True
@@ -694,15 +715,278 @@ def phase_train(smi: str):
         del run
         torch.cuda.empty_cache()
 
-    dev_g, n_g = _profile(geom["name"], geom["step"], geom["batch"], ms_g, verbose=True)
-    dev_x, n_x = _profile(xla["name"], xla["step"], xla["batch"], ms_x, verbose=False)
-    _profile(flow["name"], flow["step"], flow["batch"], ms_f, verbose=True)
-    _profile(depth["name"], depth["step"], depth["batch"], ms_d, verbose=False)
-    log(f"geom step, ssim_impl=pallas vs xla in this call: {ms_g:.1f} vs {ms_x:.1f} ms/step "
-        f"(10 timed steps each), then {ms_g2:.1f} vs {ms_x2:.1f} (5 each, in the other order); "
-        f"{n_g} vs {n_x} kernel launches/step, device time {dev_g:.1f} vs {dev_x:.1f} ms/step, "
-        f"peak memory {gb_g:.2f} vs {gb_x:.2f} GiB")
-    return by_path
+    def profiles():
+        dev_g, n_g = _profile(geom["name"], geom["step"], geom["batch"], ms_g, verbose=True)
+        dev_x, n_x = _profile(xla["name"], xla["step"], xla["batch"], ms_x, verbose=False)
+        _profile(flow["name"], flow["step"], flow["batch"], ms_f, verbose=True)
+        _profile(depth["name"], depth["step"], depth["batch"], ms_d, verbose=True)
+        log(f"geom step, ssim_impl=pallas vs xla in this call: {ms_g:.1f} vs {ms_x:.1f} ms/step "
+            f"(10 timed steps each), then {ms_g2:.1f} vs {ms_x2:.1f} (5 each, in the other "
+            f"order); {n_g} vs {n_x} kernel launches/step, device time {dev_g:.1f} vs "
+            f"{dev_x:.1f} ms/step, peak memory {gb_g:.2f} vs {gb_x:.2f} GiB")
+
+    return by_path, ms_g, profiles
+
+
+CLI_STACKS = 16  # synthetic prepared dataset of the CLI phase
+
+
+def _write_png(path: str, rgb) -> None:
+    """An 8-bit RGB PNG (filter type 0) written with the standard library."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def _prepared_dataset(root: str, h: int, w: int) -> None:
+    """CLI_STACKS stacks [3h, w, 3] of a smooth random texture that moves a
+    few pixels from frame to frame, a calib file and train.txt: the layout
+    of a prepared KITTI dataset."""
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "d"), exist_ok=True)
+    rng = np.random.RandomState(0)
+    m = 8
+    yy, xx = np.mgrid[0:h + 2 * m, 0:w + 2 * m].astype(np.float32)
+    lines = []
+    for i in range(CLI_STACKS):
+        tex = np.zeros((h + 2 * m, w + 2 * m, 3), np.float32)
+        for c in range(3):
+            for _ in range(4):
+                fy, fx = rng.uniform(0.01, 0.12, 2)
+                tex[..., c] += np.sin(fy * yy + fx * xx + rng.uniform(0, 6.3))
+        tex = (tex - tex.min()) / (tex.max() - tex.min()) * 255.0
+        dy, dx = rng.randint(-3, 4, 2)
+        frames = [tex[m + k * dy:m + k * dy + h, m + k * dx:m + k * dx + w] for k in (-1, 0, 1)]
+        _write_png(os.path.join(root, "d", f"{i:06d}.png"),
+                   np.concatenate(frames, 0).astype(np.uint8))
+        lines.append(f"d/{i:06d}.png calib.txt\n")
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write(f"P_rect_02: 241.0 0.0 {w / 2} 0.0 0.0 245.0 {h / 2} 0.0 0.0 0.0 1.0 0.0\n")
+    with open(os.path.join(root, "train.txt"), "w") as f:
+        f.writelines(lines)
+
+
+def _image_decoding() -> tuple[str, str]:
+    """Which of three cases the machine is in for decoding the stacks: (a)
+    the native loader builds (g++ with the libpng and libjpeg headers), (b)
+    only cv2 is there (the Python loader), (c) neither."""
+    import importlib.util
+    import shutil
+
+    from unsupervised_depth_opticalflow_egomotion_torch.data import native_loader
+
+    facts = (f"cv2 {'present' if importlib.util.find_spec('cv2') else 'absent'}, "
+             f"png.h {'present' if os.path.exists('/usr/include/png.h') else 'absent'}, "
+             f"jpeglib.h {'present' if os.path.exists('/usr/include/jpeglib.h') else 'absent'}, "
+             f"g++ {'present' if shutil.which('g++') else 'absent'}")
+    if native_loader.load_lib() is not None:
+        return "a", facts
+    return ("b" if importlib.util.find_spec("cv2") else "c"), facts
+
+
+def phase_cli(smi: str, geom_ms: float):
+    """``_cli_stages`` in a temporary directory (the checkpoints are large),
+    removed afterwards."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+        _cli_stages(smi, geom_ms, root)
+
+
+def _cli_stages(smi: str, geom_ms: float, root: str):
+    """The port's training entry point at b8 256x832 bf16 on PNGs on disk:
+    flow 3 steps through the occlusion switch (the splat kernel launches),
+    depth 2 steps from the flow stage in a subprocess (``python3 -m
+    ...train``), geom 8 steps grafted from both, and a resume of geom to 10
+    steps that dumps the masks. Checks the graft (parameters from the
+    donors, BatchNorm statistics fresh), the restored tensors against the
+    saved ones, finite logged losses, checkpoints and dumps, and that every
+    in-process launch had a signature phase 3 held. Prints the loader that
+    ran, the CLI's steady geom frames/s beside phase 5's, and the loader's
+    samples/s alone."""
+    import pickle
+
+    import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch import train as cli
+    from unsupervised_depth_opticalflow_egomotion_torch.config import load_config
+    from unsupervised_depth_opticalflow_egomotion_torch.data import KittiPreparedDataset, make_loader
+    from unsupervised_depth_opticalflow_egomotion_torch.parallel import init_state
+    from unsupervised_depth_opticalflow_egomotion_torch.utils import CheckpointManager, MetricLogger
+
+    t_start = time.perf_counter()
+    b, h, w = 8, 256, 832
+    data = os.path.join(root, "prepared")
+    _prepared_dataset(data, h, w)
+    log(f"cli: {CLI_STACKS} stacks written in {time.perf_counter() - t_start:.1f} s")
+    yaml_path = os.path.join(root, "cli.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(f"img_hw: [{h}, {w}]\nbatch_size: {b}\ntest_interval: 0\nlog_interval: 2\n"
+                f"save_interval: 4\nprepared_base_dir: {data}\n")
+    case, facts = _image_decoding()
+    if case == "c":
+        fail(f"cli: no image decoder for the loader ({facts})")
+    dirs = {n: os.path.join(root, n) for n in ("flow", "depth", "geom")}
+    ckpts = {n: os.path.join(d, "ckpt") for n, d in dirs.items()}
+    kernels = {n: k for n, (k, _) in path_kernels().items()}
+    log_times: dict[int, float] = {}
+
+    def finite_log(model_dir):
+        with open(os.path.join(model_dir, "log.pkl"), "rb") as f:
+            hist = pickle.load(f)
+        bad = {k: v for k, vals in hist.items() for _, v in vals if not math.isfinite(v)}
+        if not hist or bad:
+            fail(f"cli: {model_dir}: no logged losses or non-finite ones: {bad}")
+
+    def run(name, **overrides):
+        """One in-process CLI run; launch counts zeroed before, read after."""
+        t0 = time.perf_counter()
+        cfg = load_config(yaml_path, **overrides)
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+            k.seen.clear()
+        model, opt, step = cli.train(cfg)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+        unchecked = {n: sorted(k.seen - CHECKED[n]) for n, k in kernels.items() if k.seen - CHECKED[n]}
+        if unchecked:
+            fail(f"cli {name}: launches with signatures that the kernels phase did not hold "
+                 f"against the plain version: {unchecked}")
+        finite_log(cfg.model_dir)
+        if CheckpointManager(os.path.join(cfg.model_dir, "ckpt")).latest_step() != step:
+            fail(f"cli {name}: no checkpoint of step {step}")
+        log(f"cli {name}: {step} steps in {time.perf_counter() - t0:.1f} s, launches "
+            f"{json.dumps({n: v for n, v in launches.items() if v})}")
+        return cfg, model, opt, step, launches
+
+    # flow, through the occlusion switch at step 2 (>=): one splat step
+    _, model, _, _, launches = run("flow", mode="flow", model_dir=dirs["flow"], num_iterations=3,
+                                   flow_occ_switch_step=2)
+    if launches["splat_mass"] != 8 or model.cfg.flow_occ_impl != "splat":
+        fail(f"cli flow: the occlusion switch ran {launches['splat_mass']} splats, expected 8")
+    del model
+    # depth, grafted from the flow stage, through the module entry point
+    cmd = [sys.executable, "-m", "unsupervised_depth_opticalflow_egomotion_torch.train",
+           "-c", yaml_path, "--mode", "depth", "--model_dir", dirs["depth"],
+           "--num_iterations", "2", "--flow_pretrained_model", ckpts["flow"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    with open(os.path.join(OUT_DIR, "cli_depth_subprocess.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0 or "training done" not in proc.stdout:
+        fail(f"cli depth: python3 -m ...train exited {proc.returncode}: {proc.stderr[-2000:]}")
+    finite_log(dirs["depth"])
+    if CheckpointManager(ckpts["depth"]).latest_step() != 2:
+        fail("cli depth: no checkpoint of step 2")
+    log(f"cli depth: python3 -m unsupervised_depth_opticalflow_egomotion_torch.train exited 0 "
+        f"in {time.perf_counter() - t0:.1f} s ({' '.join(cmd[3:])})")
+
+    # the graft of geom's staged init: every parameter from the depth stage
+    # (its flow networks from the flow stage), every BatchNorm buffer fresh
+    geom_cfg = load_config(yaml_path, mode="geom", model_dir=dirs["geom"], num_iterations=8,
+                           flow_pretrained_model=ckpts["flow"],
+                           depth_pretrained_model=ckpts["depth"])
+    flow_sd = CheckpointManager(ckpts["flow"]).restore_params()
+    depth_sd = CheckpointManager(ckpts["depth"]).restore_params()
+    model, _ = init_state(geom_cfg)
+    fresh = {k: v.cpu().clone() for k, v in model.named_buffers()}
+    cli.stage_init(model, geom_cfg)
+    wrong = [k for k, p in model.named_parameters() if not torch.equal(p.cpu(), depth_sd[k])
+             or (k.startswith(("fpyramid.", "pwc_model.")) and not torch.equal(depth_sd[k], flow_sd[k]))]
+    moved = [k for k in fresh if not torch.equal(depth_sd[k], fresh[k])]
+    grafted_bufs = [k for k, v in model.named_buffers() if not torch.equal(v.cpu(), fresh[k])]
+    if wrong or not moved or grafted_bufs:
+        fail(f"cli graft: parameters unlike the donors' {wrong[:5]}, BatchNorm buffers taken "
+             f"{grafted_bufs[:5]} (of {len(moved)} the depth stage moved)")
+    del model
+
+    # geom, timed between the log steps, whose metrics' host copy syncs
+    original = MetricLogger.add_scalars
+
+    def timed(self, step, scalars):
+        log_times[step] = time.perf_counter()
+        original(self, step, scalars)
+
+    MetricLogger.add_scalars = timed
+    try:
+        _, model, _, step, launches = run(
+            "geom", mode="geom", model_dir=dirs["geom"], num_iterations=8,
+            flow_pretrained_model=ckpts["flow"], depth_pretrained_model=ckpts["depth"])
+    finally:
+        MetricLogger.add_scalars = original
+    per_step = {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
+                "ssim_fwd": 6, "ssim_bwd": 6}
+    want = {n: per_step.get(n, 0) * 8 for n in kernels}
+    if launches != want:
+        fail(f"cli geom: kernel launches {launches}, expected {want}")
+    # steps 3-4 and 7-8: the windows without a checkpoint save (at 4 and 8,
+    # each after its step's log)
+    window = (log_times[4] - log_times[2]) + (log_times[8] - log_times[6])
+    cli_fps = 4 * b / window
+    del model
+
+    # resume: the restored tensors equal the saved ones; then to step 10,
+    # logging every step, so that step 10 dumps the masks
+    mgr = CheckpointManager(ckpts["geom"])
+    saved = mgr.load(8)
+    model, opt = init_state(geom_cfg)
+    if mgr.restore(model, opt, 8, expect_opt_layout="adam:all") != 8:
+        fail("cli resume: restored another step than 8")
+    got_opt = opt.state_dict()["state"]
+    bad = [k for k, v in model.state_dict().items() if not torch.equal(v.cpu(), saved["model"][k])]
+    bad += [f"adam {i}.{k}" for i, st in saved["optimizer"]["state"].items()
+            for k, v in st.items() if not torch.equal(got_opt[i][k].cpu(), v)]
+    if bad or {int(st["step"]) for st in got_opt.values()} != {8}:
+        fail(f"cli resume: restored tensors unlike the saved ones: {bad[:5]}")
+    del model, opt
+    _, model, opt, step, _ = run("geom resume", mode="geom", model_dir=dirs["geom"],
+                                 num_iterations=10, resume=True, log_interval=1)
+    adam_steps = {int(st["step"]) for st in opt.state_dict()["state"].values()}
+    dump = os.path.join(dirs["geom"], "images", "step_00000010")
+    n_png = len([n for n in os.listdir(dump) if n.endswith(".png")]) if os.path.isdir(dump) else 0
+    if step != 10 or adam_steps != {10} or n_png != 10 or not model.training:
+        fail(f"cli resume: step {step}, Adam steps {adam_steps}, {n_png} mask images")
+    del model, opt
+
+    # the loader alone, as the CLI builds it (decode cache warm after the
+    # first pass over the stacks)
+    cfg = load_config(yaml_path)
+    ds = KittiPreparedDataset(data, num_scales=cfg.num_scales, img_hw=(h, w),
+                              num_iterations=48 * b, seed=cfg.seed,
+                              cache_decoded_bytes=cfg.decode_cache_bytes, uint8_images=True)
+    loader = make_loader(ds, b, impl=cfg.loader_impl, shuffle=True,
+                         num_workers=cfg.num_workers, seed=cfg.seed)
+    if case == "a" and type(loader).__name__ != "NativeBatchLoader":
+        fail("cli: the native loader builds here but the CLI did not take it")
+    batches = iter(loader)
+    for _ in range(2 * CLI_STACKS // b):
+        next(batches)
+    t0 = time.perf_counter()
+    n = sum(x[0].shape[0] for x in batches)
+    loader_sps = n / (time.perf_counter() - t0)
+
+    log(f"cli: image decoding here: {facts}: case ({case}); input pipeline "
+        f"{type(loader).__name__} ({cfg.num_workers} workers)")
+    log(f"cli: geom steady {cli_fps:.2f} frames/s through the entry point (steps 3-4 and 7-8, "
+        f"from PNGs on disk) against phase 5's {b / geom_ms * 1e3:.2f} frames/s on one "
+        f"device-resident batch, in this call | nvidia-smi: {smi}")
+    log(f"cli: loader alone {loader_sps:.1f} samples/s ({n} samples, b{b} {h}x{w} uint8) "
+        f"| nvidia-smi: {smi}")
+    log(f"cli: phase {time.perf_counter() - t_start:.1f} s")
 
 
 def _profile(name, step, batch, step_ms: float, verbose: bool):
@@ -766,7 +1050,9 @@ def main():
     phase_build()
     rows = phase_kernels()
     phase_parity()
-    by_path = phase_train(smi)
+    by_path, ms_geom, profiles = phase_train(smi)
+    phase_cli(smi, ms_geom)
+    profiles()
 
     table = []
     for name, (kernel, replaces) in path_kernels().items():

@@ -6,12 +6,16 @@
 - rigid flow = projected pixel coords - identity grid
 - E = [t]x R and F = K^-T E K^-1
 
-All coordinate math runs in f32 whatever the compute dtype.
+All coordinate math runs in f32 whatever the compute dtype. The 3x3
+products over every pixel are elementwise multiply-adds (``map_points``),
+not ``einsum``: on CUDA an einsum runs them as f32 cuBLAS ``bmm`` with K = 3,
+whose backward is many times slower than the bytes it moves.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .warp import DEFAULT_ROUTE, WarpRoute, grid_sample, pixel_grid
 
@@ -41,21 +45,64 @@ def pose_vec2mat(vec: torch.Tensor) -> torch.Tensor:
     return torch.cat([euler2mat(vec[:, 3:]), vec[:, :3, None]], dim=2)
 
 
+class _PointMap(torch.autograd.Function):
+    """out[..., i] = sum_j m[b,i,j] p[..., j] over the k channels of ``p``,
+    plus m[b,i,k] when ``m`` has a column more than ``p`` has channels.
+
+    ``p`` is [B,H,W,k], or [H,W,k] when the batch shares it (a pixel grid).
+    The forward is a broadcast multiply-add a channel, summed in the order
+    of the JAX package's einsum (another order flips a hard-mask pixel in
+    tests/test_torch_geom.py). The backward is one product and one
+    reduction a gradient; autograd of the forward would make a reduction a
+    column.
+    """
+
+    @staticmethod
+    def forward(ctx, m, p):
+        ctx.save_for_backward(m, p)
+        k = p.shape[-1]
+        m5 = m[:, None, None]  # [B,1,1,3,c]
+        out = m5[..., 0] * p[..., :1]
+        for j in range(1, k):
+            out.addcmul_(m5[..., j], p[..., j : j + 1])
+        if m.shape[-1] > k:  # last, as the einsum's sum plus the column
+            out.add_(m5[..., k])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        m, p = ctx.saved_tensors
+        k = p.shape[-1]
+        gm = gp = None
+        if ctx.needs_input_grad[0]:
+            # the constant column's gradient in the same reduction: p gets a 1
+            ph = F.pad(p, (0, 1), value=1.0) if m.shape[-1] > k else p
+            gm = (g[..., :, None] * ph[..., None, :]).sum((1, 2))
+        if ctx.needs_input_grad[1]:
+            gp = (g[..., :, None] * m[:, None, None, :, :k]).sum(-2)
+            if p.dim() == 3:
+                gp = gp.sum(0)
+        return gm, gp
+
+
+def map_points(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """[B,3,k] or [B,3,k+1] (a constant column last) times every point of
+    ``p`` ([B,H,W,k] or [H,W,k]) -> [B,H,W,3], as f32 multiply-adds over the
+    last axis."""
+    return _PointMap.apply(m.float(), p.float())
+
+
 def pixel2cam(depth: torch.Tensor, intrinsics_inv: torch.Tensor) -> torch.Tensor:
-    """Backproject depth [B,H,W] with K_inv [B,3,3] -> cam points [B,H,W,3]."""
+    """Backproject depth [B,H,W] with K_inv [B,3,3] -> cam points [B,H,W,3]
+    (K_inv times the homogeneous pixel (x, y, 1), times the depth)."""
     _, h, w = depth.shape
-    grid = pixel_grid(h, w, device=depth.device)
-    homo = torch.cat([grid, torch.ones((h, w, 1), device=depth.device)], dim=-1)
-    cam = torch.einsum("bij,hwj->bhwi", intrinsics_inv.float(), homo)
-    return cam * depth.float()[..., None]
+    rays = map_points(intrinsics_inv, pixel_grid(h, w, device=depth.device))
+    return rays * depth.float()[..., None]
 
 
 def _project(cam_coords: torch.Tensor, proj: torch.Tensor):
     """cam points [B,H,W,3] through [B,3,4] -> (x/z, y/z, clamped z)."""
-    pts = (
-        torch.einsum("bij,bhwj->bhwi", proj[:, :, :3], cam_coords)
-        + proj[:, None, None, :, 3]
-    )
+    pts = map_points(proj, cam_coords)
     z = torch.clamp(pts[..., 2], min=1e-3)
     return pts[..., 0] / z, pts[..., 1] / z, z
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .geometry import fundamental_from_pose
+from .geometry import fundamental_from_pose, map_points
 from .warp import pixel_grid
 
 
@@ -98,12 +98,11 @@ def epipolar_map(pose_vec, flow, intrinsics, intrinsics_inv):
     del intrinsics
     b, h, w, _ = flow.shape
     flow = flow.float()
-    grid = pixel_grid(h, w, device=flow.device)[None]
+    grid = pixel_grid(h, w, device=flow.device)
     f = fundamental_from_pose(pose_vec.float(), intrinsics_inv.float())
     ones = torch.ones((b, h, w, 1), device=flow.device)
-    p1h = torch.cat([grid.expand(b, h, w, 2), ones], dim=-1)
     p2h = torch.cat([grid + flow, ones], dim=-1)
-    epi_line = torch.einsum("bij,bhwj->bhwi", f, p1h)
+    epi_line = map_points(f, grid)  # F (x, y, 1)
     a, bb = epi_line[..., 0], epi_line[..., 1]
     dist_div = torch.sqrt(a * a + bb * bb) + 1e-6
     geom_dist = abs_((p2h * epi_line).sum(-1))
