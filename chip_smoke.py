@@ -52,12 +52,27 @@ uses card 0). Phases, in order; any failure exits non-zero:
    machine's image libraries), the CLI's steady geom frames/s beside phase
    5's, and the loader's samples/s alone. It runs after phase 5's timed
    steps and before phase 5's profiles.
+7. eval: evaluation and inference from phase 6's geom checkpoint, on
+   synthetic trees in KITTI's layouts at 375x1242 (flow 2015 and 2012,
+   the raw eigen split, odometry sequence 09), in the same temporary
+   directory: the eval CLI (``python3 -m ...test``) for kitti_flow_2015
+   with submission PNGs, kitti_flow_2012, kitti_depth, kitti_pose with the
+   trajectory export and demo, as subprocesses started together, each of
+   which must exit 0 and print its metrics, and meanwhile one geom run of
+   the training CLI with interleaved eval of all four data sets (its
+   log.pkl must hold the four records); the card's inference against the
+   CPU's on 16 flow pairs, eigen frames and pose snippets, outputs and
+   metrics within EVAL_TOL, and TF32 on against off on the card; each task end to
+   end on the card, the flow task as the eval_flow path of the cost-volume
+   forward (f32, B = 8, 5 launches a batch), and a device-resident batch
+   of each inference. Every launch of the phase must have a signature
+   that phase 3 held. Runs before phase 5's profiles.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with a row per kernel (its launches, times, device
-times and bound on the first of the paths geom, flow, depth, geom_regather
-that launches it, named in "path", and the same for every path under
-"by_path"), and
+times and bound on the first of the paths geom, flow, depth, geom_regather,
+eval_flow that launches it, named in "path", and the same for every path
+under "by_path"), and
 {"ok": true, "device": {...}}. Details (per-shape kernel table, compiler
 report, profiles) go to chiprun_out/chip_smoke/.
 """
@@ -69,6 +84,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s by input type
@@ -82,10 +98,12 @@ SSIM_FWD_FLOPS = 70  # per element: five 9-tap sums, the map
 SSIM_BWD_FLOPS = 150  # per element: the statistics again, four planes, four 9-tap sums
 SPLAT_FLOPS_PER_PIXEL = 20
 _TPU = "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/"
-# the train paths of phase 5 that the kernel table reports, in the order in
-# which a kernel's row picks its path; geom_regather is the geom step under
-# warp_impl="pallas", pwc_corr="pallas"
-PATHS = ("geom", "flow", "depth", "geom_regather")
+# the paths that the kernel table reports, in the order in which a kernel's
+# row picks its path: the train paths of phase 5 (geom_regather is the geom
+# step under warp_impl="pallas", pwc_corr="pallas"; a "step" is a train
+# step) and phase 7's eval_flow (the f32 flow inference of the KITTI 2015
+# eval; a "step" is a batch of 8 pairs)
+PATHS = ("geom", "flow", "depth", "geom_regather", "eval_flow")
 CHECKED: dict[str, set] = {}  # kernel -> launch signatures held in phase 3
 
 
@@ -343,14 +361,19 @@ def phase_kernels():
         ))
         del src_nchw, g_nchw, grid
 
-    # correlation: the five PWC levels of the 2B decoder batch, bf16; f32
-    # checks (on no path) at the finest level and at the coarsest, where the
-    # tiles' last channel chunk is partial and pixel rows are 8-byte aligned,
-    # and at the five levels of the CLI's f32 mask dump (2B = 2)
+    # correlation: the five PWC levels of the 2B decoder batch, bf16 ("train":
+    # the train paths); f32 checks (on no path) at the finest level and at
+    # the coarsest, where the tiles' last channel chunk is partial and pixel
+    # rows are 8-byte aligned; the five levels of the CLI's f32 mask dump and
+    # of an eval's last short batch (B = 2: KITTI 2012's 194 = 24 x 8 + 2);
+    # and the five levels of the eval's f32 flow inference at B = 8
+    # ("eval": the forward alone, on the eval_flow path)
     levels = [(4, 13, 196), (8, 26, 128), (16, 52, 96), (32, 104, 64), (64, 208, 32)]
-    cases = [(h, w, c, "bfloat16", True, 16) for h, w, c in levels] + [
-        (64, 208, 32, "float32", False, 16), (4, 13, 196, "float32", False, 16)] + [
-        (h, w, c, "float32", False, 2) for h, w, c in levels]
+    cases = [(h, w, c, "bfloat16", "train", 16) for h, w, c in levels] + [
+        (64, 208, 32, "float32", None, 16), (4, 13, 196, "float32", None, 16)] + [
+        (h, w, c, "float32", None, 2) for h, w, c in levels] + [
+        (h, w, c, "float32", "eval", 8) for h, w, c in levels]
+    train_corr = {"geom": 1, "flow": 1}
     for h, w, c, dts, on_path, b in cases:
         md, nd = 4, 81
         dt = getattr(torch, dts)
@@ -386,9 +409,10 @@ def phase_kernels():
             b_ms, b_by = bound(nbytes, 2 * macs, dts)
             rows.append(dict(
                 kernel=name, shape=f"{dts}[{b},{h},{w},{c}]",
-                # pwc_corr="pallas" launches the forward kernel only
-                per_step=({"geom": 1, "flow": 1, **({"geom_regather": 1} if name == "corr_fwd" else {})}
-                          if on_path else {}),
+                # pwc_corr="pallas" and the eval launch the forward kernel only
+                per_step=({**train_corr, **({"geom_regather": 1} if name == "corr_fwd" else {})}
+                          if on_path == "train" else
+                          {"eval_flow": 1} if on_path == "eval" and name == "corr_fwd" else {}),
                 max_abs_err=err, tol=rel * scale, ok=err <= rel * scale,
                 ms=cuda_ms(k_fn, 20), device_ms=graph_ms(k_fn),
                 plain_ms=cuda_ms(p_fn, 3) if name == "corr_fwd" else plain_bwd_ms,
@@ -797,16 +821,7 @@ def _image_decoding() -> tuple[str, str]:
     return ("b" if importlib.util.find_spec("cv2") else "c"), facts
 
 
-def phase_cli(smi: str, geom_ms: float):
-    """``_cli_stages`` in a temporary directory (the checkpoints are large),
-    removed afterwards."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
-        _cli_stages(smi, geom_ms, root)
-
-
-def _cli_stages(smi: str, geom_ms: float, root: str):
+def phase_cli(smi: str, geom_ms: float, root: str):
     """The port's training entry point at b8 256x832 bf16 on PNGs on disk:
     flow 3 steps through the occlusion switch (the splat kernel launches),
     depth 2 steps from the flow stage in a subprocess (``python3 -m
@@ -989,6 +1004,439 @@ def _cli_stages(smi: str, geom_ms: float, root: str):
     log(f"cli: phase {time.perf_counter() - t_start:.1f} s")
 
 
+EVAL_HW = (375, 1242)  # KITTI's frame size
+EVAL_DISTINCT = 8  # distinct frames of each kind; the others are hard links to them
+EIGEN_FRAMES = 64
+ODOM_FRAMES = 34  # 32 snippets: four batches of 8
+SUBSET = 16  # flow pairs, eigen frames and pose snippets held card against CPU
+# card (kernels, TF32 off) against CPU (plain versions), f32, the same
+# checkpoint and inputs (PERF.md section 2): per-sample outputs to an
+# absolute tolerance; the metrics to a relative one; the Fl rates may differ
+# only by pixels whose EPE lies, on the CPU, within the two devices' flow
+# difference of the 3 px / 5 % threshold
+EVAL_TOL = {"flow": 1e-3, "disp": 1e-4, "pose": 1e-5, "metric": 1e-3, "pose_metric": 1e-2}
+
+
+def _link(src: str, dst: str) -> None:
+    try:
+        os.link(src, dst)
+    except OSError:
+        import shutil
+
+        shutil.copyfile(src, dst)
+
+
+def _smooth(rng, h, w, cells=32):
+    """A smooth random field [h, w] in about [-1, 1]."""
+    import cv2
+    import numpy as np
+
+    coarse = rng.uniform(-1, 1, (h // cells + 2, w // cells + 2)).astype(np.float32)
+    return cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC)
+
+
+def _frame(rng, h, w):
+    import numpy as np
+
+    rgb = np.stack([_smooth(rng, h, w, 24) + 0.3 * _smooth(rng, h, w, 6) for _ in range(3)], -1)
+    return (255 * (rgb - rgb.min()) / (rgb.max() - rgb.min())).astype(np.uint8)
+
+
+def _eval_trees(root: str) -> dict:
+    """Synthetic trees in KITTI's layouts at 375x1242, from seed 0:
+    flow 2015 (200 pairs with flow_occ, flow_noc, obj_map), flow 2012 (194
+    pairs), the raw eigen layout with its test list and gt_depths.npz
+    (EIGEN_FRAMES frames; sparse depths in (1, 80) m), odometry sequence 09
+    (ODOM_FRAMES frames, 4 m a frame while turning slowly) with
+    poses/09.txt, and the subsets held card against CPU (the first 16 eigen
+    frames; an 18-frame sequence of 16 snippets). EVAL_DISTINCT frames of
+    each kind are distinct; the others are hard links to them."""
+    import cv2
+    import numpy as np
+
+    from unsupervised_depth_opticalflow_egomotion_torch.evaluation import write_flow_png
+
+    rng = np.random.RandomState(0)
+    h, w = EVAL_HW
+    t = {k: os.path.join(root, k) for k in ("kitti2015", "kitti2012", "raw", "odom", "odom16")}
+    for sub in ("image_2", "flow_occ", "flow_noc", "obj_map"):
+        os.makedirs(os.path.join(t["kitti2015"], sub))
+    os.makedirs(os.path.join(t["kitti2012"], "image_2"))
+    for sub in ("flow_occ", "flow_noc"):
+        os.makedirs(os.path.join(t["kitti2012"], sub))
+    files = lambda i: [os.path.join(s, f"{i:06d}_{k}.png") for s, k in (  # noqa: E731
+        ("image_2", 10), ("image_2", 11), ("flow_occ", 10), ("flow_noc", 10), ("obj_map", 10))]
+    rows = np.arange(h)[:, None]
+    for i in range(EVAL_DISTINCT):
+        f = [os.path.join(t["kitti2015"], p) for p in files(i)]
+        tex = _frame(rng, h + 16, w + 16)
+        dy, dx = rng.randint(-6, 7, 2)
+        cv2.imwrite(f[0], tex[8:8 + h, 8:8 + w])
+        cv2.imwrite(f[1], tex[8 + dy:8 + dy + h, 8 + dx:8 + dx + w])
+        u, v = 20.0 * _smooth(rng, h, w) - dx, 8.0 * _smooth(rng, h, w) - dy
+        valid = ((rows > h // 3) & (rng.rand(h, w) > 0.2)).astype(np.float64)
+        noc = valid * (np.abs(_smooth(rng, h, w)) < 0.8)
+        write_flow_png(f[2], u, v, valid)
+        write_flow_png(f[3], u, v, noc)
+        obj = np.zeros((h, w), np.uint16)
+        y0, x0 = rng.randint(h // 3, h - 80), rng.randint(0, w - 200)
+        obj[y0:y0 + 80, x0:x0 + 200] = 1 + i % 3
+        cv2.imwrite(f[4], obj)
+    for i in range(EVAL_DISTINCT, 200):
+        for a, b in zip(files(i % EVAL_DISTINCT), files(i)):
+            _link(os.path.join(t["kitti2015"], a), os.path.join(t["kitti2015"], b))
+    for i in range(194):
+        for a, b in zip(files(i % EVAL_DISTINCT)[:4], files(i)[:4]):
+            _link(os.path.join(t["kitti2015"], a), os.path.join(t["kitti2012"], b))
+
+    drive = "2011_09_26/2011_09_26_drive_0001_sync"
+    data = os.path.join(t["raw"], drive, "image_02", "data")
+    os.makedirs(data)
+    depths = []
+    for i in range(EVAL_DISTINCT):
+        cv2.imwrite(os.path.join(data, f"{i:010d}.png"), _frame(rng, h, w))
+        sparse = (rows > h // 3) & (rng.rand(h, w) < 0.05)
+        depths.append((rng.uniform(1.0, 80.0, (h, w)) * sparse).astype(np.float32))
+    for i in range(EVAL_DISTINCT, EIGEN_FRAMES):
+        _link(os.path.join(data, f"{i % EVAL_DISTINCT:010d}.png"), os.path.join(data, f"{i:010d}.png"))
+    lines = [f"{drive} {i:010d} l\n" for i in range(EIGEN_FRAMES)]
+    t["eigen_txt"], t["eigen16_txt"] = (os.path.join(root, n) for n in ("eigen.txt", "eigen16.txt"))
+    for path, n in ((t["eigen_txt"], EIGEN_FRAMES), (t["eigen16_txt"], SUBSET)):
+        with open(path, "w") as f:
+            f.writelines(lines[:n])
+    gt = np.empty(EIGEN_FRAMES, dtype=object)
+    gt[:] = [depths[i % EVAL_DISTINCT] for i in range(EIGEN_FRAMES)]  # pickled once each
+    t["eigen_npz"] = os.path.join(root, "gt_depths.npz")
+    np.savez(t["eigen_npz"], data=gt)
+
+    poses = []
+    for i in range(ODOM_FRAMES):
+        a = 0.01 * i
+        poses.append(np.array([[np.cos(a), 0, np.sin(a), 20 * (1 - np.cos(a))],
+                               [0, 1, 0, 0.05 * i], [-np.sin(a), 0, np.cos(a), 4.0 * i]]))
+    for key, n in (("odom", ODOM_FRAMES), ("odom16", SUBSET + 2)):
+        seq = os.path.join(t[key], "sequences", "09", "image_2")
+        os.makedirs(seq)
+        os.makedirs(os.path.join(t[key], "poses"))
+        for i in range(n):
+            src = os.path.join(t["odom"], "sequences", "09", "image_2", f"{i % EVAL_DISTINCT:06d}.png")
+            if key == "odom" and i < EVAL_DISTINCT:
+                cv2.imwrite(src, _frame(rng, h, w))
+            else:
+                _link(src, os.path.join(seq, f"{i:06d}.png"))
+        with open(os.path.join(t[key], "poses", "09.txt"), "w") as f:
+            f.write("".join(" ".join(f"{x:.9e}" for x in p.reshape(-1)) + "\n" for p in poses[:n]))
+    t["demo"] = os.path.join(t["kitti2015"], "image_2", "000003_10.png")
+    return t
+
+
+def _fl_outliers(gt, pred, img_hw):
+    """eval_flow_avg's resize of ``pred`` to the GT, its EPE map and the Fl
+    outlier map (EPE > 3 px and > 5 % of |gt|) over the valid pixels."""
+    import cv2
+    import numpy as np
+
+    H, W = gt.shape[:2]
+    p = np.copy(pred)
+    p[:, :, 0] = p[:, :, 0] / img_hw[1] * W
+    p[:, :, 1] = p[:, :, 1] / img_hw[0] * H
+    flo = cv2.resize(p, (W, H), interpolation=cv2.INTER_LINEAR)
+    epe = np.sqrt(np.sum(np.square(flo - gt[:, :, :2]), axis=2))
+    mag = np.maximum(np.sqrt(np.sum(np.square(gt[:, :, :2]), axis=2)), 1e-10)
+    valid = gt[:, :, 2] > 0
+    return flo, epe, mag, valid & (epe > 3) & (epe / mag > 0.05)
+
+
+def _recording(fn, outputs: list):
+    def call(*args):
+        out = fn(*args)
+        outputs.append(out)
+        return out
+    return call
+
+
+def _tf32_fns(model):
+    """The inference methods on the card with TF32 allowed (what PyTorch does
+    for cuDNN's f32 convolutions by default): the measurement of what the
+    eval's full_precision() changes."""
+    import numpy as np
+    import torch
+
+    def run(method, *arrays):
+        prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.inference_mode():
+                args = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda() for a in arrays]
+                return method(*args).cpu().numpy()
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+    return (lambda a, b: run(model.inference_flow, a, b), lambda x: run(model.infer_disp, x),
+            lambda x: run(model.infer_pose, x))
+
+
+EVAL_TASKS = {  # the eval CLI's tasks of phase 7: extra flags, what the output must show
+    "kitti_flow_2015": (["--write_submission"], "[EVAL] [kitti_2015]"),
+    "kitti_flow_2012": ([], "[EVAL] [kitti_2012]"),
+    "kitti_depth": ([], "abs_rel="),
+    "kitti_pose": (["--export_trajectory"], "Sequence: 09"),
+    "demo": ([], "Depth prediction saved in"),
+}
+
+
+def _eval_training_cli(root: str, dirs: dict, kernels: dict) -> dict:
+    """One geom run of the training CLI, 2 steps with test_interval 1 and all
+    four eval data sets named: log.pkl must hold one finite record of each
+    eval at step 1 and finite losses, and the launches must be the two
+    steps' and the eval's flow inference. Returns the GT the CLI read (its
+    ``load_eval_context``), which the rest of the phase reuses: the read
+    costs more than the eval (PERF.md section 5)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch import train as cli
+    from unsupervised_depth_opticalflow_egomotion_torch.config import load_config
+
+    t0 = time.perf_counter()
+    for k in kernels.values():
+        k.launches = 0
+    cfg = load_config(os.path.join(root, "cli.yaml"), mode="geom", num_iterations=2,
+                      test_interval=1, model_dir=os.path.join(root, "geom_eval"), **dirs)
+    # the GT read and the eval, timed where the CLI calls them
+    spans: dict[str, float] = {}
+    results = {}
+    originals = {n: getattr(cli, n) for n in ("load_eval_context", "run_interleaved_eval")}
+
+    def timed(name):
+        def call(*args, **kw):
+            t1 = time.perf_counter()
+            results[name] = originals[name](*args, **kw)
+            spans[name] = time.perf_counter() - t1
+            return results[name]
+        return call
+
+    for n in originals:
+        setattr(cli, n, timed(n))
+    try:
+        cli.train(cfg)
+    finally:
+        for n, f in originals.items():
+            setattr(cli, n, f)
+    torch.cuda.synchronize()
+    with open(os.path.join(cfg.model_dir, "log.pkl"), "rb") as f:
+        hist = pickle.load(f)
+    evals = {k: v for k, v in hist.items() if k.startswith("eval/")}
+    names = ["eval/kitti_2012", "eval/kitti_2015", "eval/eigen_depth", "eval/pose_odom"]
+    values = [np.asarray(list(v[0][1].values()) if isinstance(v[0][1], dict) else v[0][1],
+                         np.float64) for v in evals.values()]
+    if sorted(evals) != sorted(names) or any(len(v) != 1 or v[0][0] != 1 for v in evals.values()) \
+            or not all(np.isfinite(v).all() for v in values):
+        fail(f"eval: the training CLI's log.pkl holds the eval records {evals}, expected one "
+             f"finite record at step 1 of each of {names}")
+    losses = [x for k, v in hist.items() if not k.startswith("eval/") for _, x in v]
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"eval: the training CLI's losses are missing or not finite: {losses}")
+    # 2 geom steps; 5 cost volumes for each of the 25 + 25 eval batches
+    per_step = {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
+                "ssim_fwd": 6, "ssim_bwd": 6}
+    want = {n: 2 * per_step.get(n, 0) + (5 * 50 if n == "corr_fwd" else 0) for n in kernels}
+    got = {n: k.launches for n, k in kernels.items()}
+    if got != want:
+        fail(f"eval: the training CLI with interleaved eval launched {got}, expected {want}")
+    log(f"eval: training CLI, geom 2 steps with test_interval 1 and all four eval data sets: "
+        f"{time.perf_counter() - t0:.1f} s (the GT read {spans['load_eval_context']:.1f} s, the "
+        f"eval {spans['run_interleaved_eval']:.1f} s); log.pkl records "
+        + "; ".join(f"{k} {np.round(v, 4).tolist()}" for k, v in zip(evals, values)))
+    return results["load_eval_context"]
+
+
+def _eval_card_vs_cpu(cfg, t: dict, sd: dict, gt: tuple):
+    """The card's inference (kernels, TF32 off) against the CPU's (plain
+    versions) on SUBSET flow pairs, eigen frames and pose snippets through
+    the eval's entry points, and the card with TF32 allowed. Returns the
+    card's model and inference closures."""
+    import numpy as np
+
+    from unsupervised_depth_opticalflow_egomotion_torch import eval_tasks
+    from unsupervised_depth_opticalflow_egomotion_torch.data import KittiFlowEval
+    from unsupervised_depth_opticalflow_egomotion_torch.evaluation import eval_flow_avg
+    from unsupervised_depth_opticalflow_egomotion_torch.parallel import build_model
+
+    t0 = time.perf_counter()
+    models, fns = {}, {}
+    for dev in ("cpu", "cuda"):
+        models[dev] = build_model(cfg, dev)
+        models[dev].load_state_dict(sd)
+        fns[dev] = eval_tasks.make_inference_fns(models[dev], dev)
+    fns["tf32"] = _tf32_fns(models["cuda"])
+    ds = KittiFlowEval(t["kitti2015"], "kitti_2015", cfg.img_hw)
+    pairs = np.stack([ds[i][0] for i in range(SUBSET)])
+    h = pairs.shape[1] // 2
+    gt_flows, noc, moving = (x[:SUBSET] for x in gt)
+    cfg16 = cfg.replace(eigen_test_files_txt=t["eigen16_txt"], kitti_odom_dir=t["odom16"])
+    res = {}
+    for dev, (flow_fn, disp_fn, pose_fn) in fns.items():
+        flows = np.concatenate([flow_fn(pairs[i:i + 8, :h], pairs[i:i + 8, h:])
+                                for i in range(0, SUBSET, 8)])
+        disps, poses = [], []
+        depth = eval_tasks.test_eigen_depth(cfg16, _recording(disp_fn, disps))
+        pose = eval_tasks.test_pose_odom(cfg16, _recording(pose_fn, poses))
+        res[dev] = dict(flows=flows, disps=np.concatenate(disps), poses=np.concatenate(poses),
+                        flow=eval_flow_avg(gt_flows, noc, list(flows), cfg.img_hw, moving),
+                        depth=depth, pose=pose)
+    c, g = res["cpu"], res["cuda"]
+    errs = {k: float(np.abs(g[k] - c[k]).max()) for k in ("flows", "disps", "poses")}
+    rel = lambda a, b: float(np.max(np.abs(np.asarray(a) - np.asarray(b))  # noqa: E731
+                                    / np.maximum(np.abs(np.asarray(b)), 1e-12)))
+    epe_keys = [k for k in c["flow"] if k.startswith("epe")]
+    fl_keys = [k for k in c["flow"] if k.startswith("fl")]
+    m_err = {"epe": rel([g["flow"][k] for k in epe_keys], [c["flow"][k] for k in epe_keys]),
+             "depth": rel(g["depth"][:4], c["depth"][:4]),
+             "ate_re": rel(np.concatenate(g["pose"]), np.concatenate(c["pose"]))}
+    # Fl: every pixel whose outlier status differs sits at the threshold
+    flips = stray = 0
+    for i in range(SUBSET):
+        flo_c, epe_c, mag, out_c = _fl_outliers(gt_flows[i], c["flows"][i], cfg.img_hw)
+        flo_g, _, _, out_g = _fl_outliers(gt_flows[i], g["flows"][i], cfg.img_hw)
+        d = np.sqrt(np.sum(np.square(flo_g - flo_c), axis=2)) + 1e-6
+        near = (np.abs(epe_c - 3) <= d) | (np.abs(epe_c - 0.05 * mag) <= d)
+        flips += int((out_c != out_g).sum())
+        stray += int(((out_c != out_g) & ~near).sum())
+    fl_diff = max(abs(g["flow"][k] - c["flow"][k]) for k in fl_keys)
+    tf = res["tf32"]
+    log(f"eval card vs cpu (f32, TF32 off, {SUBSET} flow pairs, eigen frames and pose snippets at "
+        f"{cfg.img_hw[0]}x{cfg.img_hw[1]}): max |diff| flow {errs['flows']:.3g} px (tol "
+        f"{EVAL_TOL['flow']}), disparity {errs['disps']:.3g} (tol {EVAL_TOL['disp']}), pose "
+        f"vector {errs['poses']:.3g} (tol {EVAL_TOL['pose']}); relative: EPEs {m_err['epe']:.3g}, "
+        f"AbsRel..RMSlog {m_err['depth']:.3g} (tol {EVAL_TOL['metric']}), ATE/RE mean and std "
+        f"{m_err['ate_re']:.3g} (tol {EVAL_TOL['pose_metric']}); Fl rates differ by at most "
+        f"{fl_diff:.3g}: {flips} pixels flipped, {stray} of them away from the threshold; "
+        f"card epe {g['flow']['epe']:.6f} fl {g['flow']['fl']:.6f} abs_rel {g['depth'][0]:.6f} "
+        f"ate {g['pose'][0][0]:.6f} ({time.perf_counter() - t0:.1f} s)")
+    log(f"eval TF32 on vs off on the card ({SUBSET}-sample subsets): epe {tf['flow']['epe']:.6f} vs "
+        f"{g['flow']['epe']:.6f} ({rel(tf['flow']['epe'], g['flow']['epe']):.3g} relative), "
+        f"abs_rel {tf['depth'][0]:.6f} vs {g['depth'][0]:.6f} "
+        f"({rel(tf['depth'][0], g['depth'][0]):.3g}), max |diff| flow "
+        f"{float(np.abs(tf['flows'] - g['flows']).max()):.3g} px, disparity "
+        f"{float(np.abs(tf['disps'] - g['disps']).max()):.3g}")
+    if (errs["flows"] > EVAL_TOL["flow"] or errs["disps"] > EVAL_TOL["disp"]
+            or errs["poses"] > EVAL_TOL["pose"] or m_err["epe"] > EVAL_TOL["metric"]
+            or m_err["depth"] > EVAL_TOL["metric"] or m_err["ate_re"] > EVAL_TOL["pose_metric"]
+            or stray):
+        fail("eval: the card's inference disagrees with the CPU's")
+    return models["cuda"], fns["cuda"]
+
+
+def phase_eval(smi: str, root: str):
+    """Phase 7: evaluation and inference on the card, from the geom
+    checkpoint that the CLI phase left in ``root``. Returns the eval_flow
+    path's (launches by kernel, batches)."""
+    import numpy as np
+    import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch import eval_tasks
+    from unsupervised_depth_opticalflow_egomotion_torch.config import load_config
+    from unsupervised_depth_opticalflow_egomotion_torch.utils import CheckpointManager
+
+    t_start = time.perf_counter()
+    t = _eval_trees(os.path.join(root, "eval"))
+    log(f"eval: synthetic KITTI trees ({EVAL_HW[0]}x{EVAL_HW[1]}: flow 2015 200 pairs, 2012 194, "
+        f"eigen {EIGEN_FRAMES} frames, odometry {ODOM_FRAMES} frames) written in "
+        f"{time.perf_counter() - t_start:.1f} s")
+    dirs = {"gt_2015_dir": t["kitti2015"], "gt_2012_dir": t["kitti2012"], "raw_base_dir": t["raw"],
+            "eigen_test_files_txt": t["eigen_txt"], "eigen_gt_depths_npz": t["eigen_npz"],
+            "kitti_odom_dir": t["odom"]}
+    eval_yaml = os.path.join(root, "eval.yaml")
+    with open(eval_yaml, "w") as f:
+        f.write("".join(f"{k}: {v}\n" for k, v in dirs.items()))
+    ckpt = os.path.join(root, "geom", "ckpt")
+    kernels = {n: k for n, (k, _) in path_kernels().items()}
+    for k in kernels.values():
+        k.seen.clear()
+
+    # the eval CLI for every task in subprocesses, started together; the
+    # training CLI's interleaved eval in this process meanwhile
+    procs = {}
+    try:
+        for task, (extra, _) in EVAL_TASKS.items():
+            if task == "demo":
+                extra = extra + ["--image_path", t["demo"]]
+            out = open(os.path.join(OUT_DIR, f"eval_cli_{task}.txt"), "w")
+            cmd = [sys.executable, "-m", "unsupervised_depth_opticalflow_egomotion_torch.test",
+                   "-c", eval_yaml, "--task", task, "--pretrained_model", ckpt,
+                   "--result_dir", os.path.join(root, "results", task), *extra]
+            procs[task] = (subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT), out)
+        ctx = _eval_training_cli(root, dirs, kernels)
+        for task, (proc, out) in procs.items():
+            rc = proc.wait(timeout=900)
+            out.close()
+            with open(out.name) as f:
+                text = f.read()
+            if rc != 0 or EVAL_TASKS[task][1] not in text:
+                fail(f"eval cli {task}: exited {rc}: {text[-2000:]}")
+            log(f"eval cli {task}: python3 -m unsupervised_depth_opticalflow_egomotion_torch.test "
+                f"exited 0: {' | '.join(text.strip().splitlines()[-3:])}")
+    finally:
+        for proc, out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    n_sub = len(os.listdir(os.path.join(root, "results", "kitti_flow_2015", "submission")))
+    if n_sub != 200 or not os.path.isfile(os.path.join(root, "results", "demo", "demo.png")):
+        fail(f"eval cli: {n_sub} submission PNGs (expected 200) or no demo.png")
+
+    gt = (ctx["gt_flows_2015"], ctx["noc_masks_2015"], ctx["gt_masks_2015"])
+    del ctx
+    cfg = load_config(eval_yaml, compute_dtype="float32")
+    model, (flow_fn, disp_fn, pose_fn) = _eval_card_vs_cpu(
+        cfg, t, CheckpointManager(ckpt).restore_params(), gt)
+
+    # throughput: each task end to end (PNG decode, inference, metrics) on
+    # the card, the flow task as the eval_flow path (launch counts zeroed
+    # just before, read just after); then a device-resident batch of 8
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    eval_tasks.test_kitti_flow(cfg, flow_fn, gt[0], gt[1], "kitti_2015", moving_masks=gt[2])
+    torch.cuda.synchronize()
+    e2e = {"flow pairs": 200 / (time.perf_counter() - t0)}
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = {n: 5 * 25 if n == "corr_fwd" else 0 for n in kernels}
+    if launches != want:
+        fail(f"eval_flow: kernel launches {launches}, expected {want}")
+    eval_tasks._EIGEN_DECODE_CACHE.clear()
+    t0 = time.perf_counter()
+    eval_tasks.test_eigen_depth(cfg, disp_fn)
+    e2e["depth frames"] = EIGEN_FRAMES / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    eval_tasks.test_pose_odom(cfg, pose_fn)
+    e2e["pose snippets"] = (ODOM_FRAMES - 2) / (time.perf_counter() - t0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a, b = (torch.rand(8, *cfg.img_hw, 3, device="cuda", generator=gen) for _ in range(2))
+    s9 = torch.rand(8, *cfg.img_hw, 9, device="cuda", generator=gen)
+    with torch.inference_mode(), eval_tasks.full_precision():
+        dev_ms = {"flow pairs": cuda_ms(lambda: model.inference_flow(a, b), 10),
+                  "depth frames": cuda_ms(lambda: model.infer_disp(a), 10),
+                  "pose snippets": cuda_ms(lambda: model.infer_pose(s9), 10)}
+    torch.cuda.synchronize()
+    for name in e2e:
+        log(f"eval throughput {name}/s: {e2e[name]:.1f} end to end (PNG decode, inference, "
+            f"metrics), {8 / dev_ms[name] * 1e3:.1f} on a device-resident batch of 8 "
+            f"({dev_ms[name]:.2f} ms a batch, CUDA events over 10 batches), f32 TF32 off "
+            f"{cfg.img_hw[0]}x{cfg.img_hw[1]} | nvidia-smi: {smi}")
+    unchecked = {n: sorted(k.seen - CHECKED[n]) for n, k in kernels.items() if k.seen - CHECKED[n]}
+    if unchecked:
+        fail(f"eval: launches with signatures (dtype codes, sizes) that the kernels phase did "
+             f"not hold against the plain version: {unchecked}")
+    log(f"eval: phase {time.perf_counter() - t_start:.1f} s")
+    return launches, 25
+
+
 def _profile(name, step, batch, step_ms: float, verbose: bool):
     """Device time by kernel and by launching op over two profiled steps;
     the busy share is the kernels' device time over the unprofiled step.
@@ -1051,7 +1499,10 @@ def main():
     rows = phase_kernels()
     phase_parity()
     by_path, ms_geom, profiles = phase_train(smi)
-    phase_cli(smi, ms_geom)
+    # the runs' directories are large: a temporary one, removed afterwards
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        phase_cli(smi, ms_geom, root)
+        by_path["eval_flow"] = phase_eval(smi, root)
     profiles()
 
     table = []
@@ -1083,7 +1534,7 @@ def main():
                 "library_device_ms": per_step_sum("library_device_ms"),
             }
         if not paths:
-            fail(f"kernel {name} was not launched on any train path")
+            fail(f"kernel {name} was not launched on any path")
         first = next(iter(paths))
         table.append({
             "name": name, "route": "cuda", "source": kernel.source, "replaces": replaces,
@@ -1092,8 +1543,8 @@ def main():
             "by_path": paths,
         })
     log(f"total {time.perf_counter() - t_start:.1f} s; a kernel's launches are those of the "
-        "run of its path, and its times are per train step of that path (each shape's time "
-        "times its launches a step)")
+        "run of its path, and its times are per train step of that path (per batch of 8 "
+        "pairs on eval_flow; each shape's time times its launches a step)")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

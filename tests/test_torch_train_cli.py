@@ -1,7 +1,8 @@
 """The port's training CLI on the CPU at 64x128, b2, f32, on a synthetic
 prepared dataset: a geom run with saves, a resume and mask dumps; the flow
-mode's occlusion schedule; the flow -> depth -> geom hand-off; and the paths
-that are not ported yet, which raise."""
+mode's occlusion schedule; the flow -> depth -> geom hand-off; the
+interleaved evaluation on synthetic KITTI trees; and the paths that are not
+ported yet, which raise."""
 
 import json
 import os
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_eval_trees import eigen_tree, kitti_flow_tree, odom_tree
 from unsupervised_depth_opticalflow_egomotion_torch import train as cli
 from unsupervised_depth_opticalflow_egomotion_torch.config import Config
 from unsupervised_depth_opticalflow_egomotion_torch.data import KittiPreparedDataset, make_loader
@@ -173,11 +175,86 @@ def test_flow_depth_geom_handoff(prepared, tmp_path, capsys):
         assert torch.equal(geom["model"][k], fresh[k]), k
 
 
+@pytest.fixture(scope="module")
+def eval_trees(tmp_path_factory):
+    """Config overrides naming synthetic KITTI eval trees: 200 flow pairs
+    (2015; 2012 reads the first 194), four eigen frames, a 6-frame sequence."""
+    root = tmp_path_factory.mktemp("evaltrees")
+    flow = kitti_flow_tree(str(root / "kflow"), 200)
+    raw, files_txt, gt_npz = eigen_tree(str(root / "eigen"), 4)
+    return {"gt_2012_dir": flow, "gt_2015_dir": flow, "raw_base_dir": raw,
+            "eigen_test_files_txt": files_txt, "eigen_gt_depths_npz": gt_npz,
+            "kitti_odom_dir": odom_tree(str(root / "odom"), 6)}
+
+
+@pytest.fixture(scope="module")
+def undisturbed(prepared, tmp_path_factory):
+    """mode -> (log.pkl, final state_dict) of a 2-step run without evals."""
+    runs = {}
+
+    def get(mode):
+        if mode not in runs:
+            out = tmp_path_factory.mktemp(f"plain_{mode}")
+            model, _, _ = cli.train(_cfg(prepared, out, mode=mode, num_iterations=2),
+                                    device="cpu")
+            with open(out / "log.pkl", "rb") as f:
+                runs[mode] = (pickle.load(f), model.state_dict())
+        return runs[mode]
+
+    return get
+
+
+EVAL_CASES = {  # id: (the eval data named, mode, the record in log.pkl)
+    "test_interval-gt_2012_dir": (("gt_2012_dir",), "geom", "kitti_2012"),
+    "test_interval-gt_2015_dir": (("gt_2015_dir",), "geom", "kitti_2015"),
+    "test_interval-raw_base_dir": (
+        ("raw_base_dir", "eigen_test_files_txt", "eigen_gt_depths_npz"), "geom", "eigen_depth"),
+    "test_interval-mode-kitti_odom_dir": (("kitti_odom_dir",), "depth", "pose_odom"),
+}
+
+
+@pytest.mark.parametrize("case", list(EVAL_CASES))
+def test_interleaved_eval(prepared, eval_trees, undisturbed, tmp_path, case, capsys):
+    """Two steps with test_interval 1 and one eval data set named: the eval
+    runs once, before step 2, and log.pkl holds its record under the JAX
+    CLI's name; the losses and the final parameters, BatchNorm statistics
+    included, equal those of the same run without evals."""
+    names, mode, record = EVAL_CASES[case]
+    kw = {k: eval_trees[k] for k in names}
+    model, _, step = cli.train(_cfg(prepared, tmp_path, mode=mode, num_iterations=2,
+                                    test_interval=1, **kw), device="cpu")
+    assert step == 2
+    with open(tmp_path / "log.pkl", "rb") as f:
+        log = pickle.load(f)
+    evals = {k: v for k, v in log.items() if k.startswith("eval/")}
+    assert list(evals) == [f"eval/{record}"] and [s for s, _ in evals[f"eval/{record}"]] == [1]
+    values = evals[f"eval/{record}"][0][1]
+    if record.startswith("kitti"):
+        assert len(values) == (8 if record == "kitti_2015" else 4)
+        assert all(np.isfinite(v) for v in values.values())
+    elif record == "eigen_depth":
+        assert len(values) == 7 and np.all(np.isfinite(values))
+    else:
+        assert [len(v) for v in values] == [2, 2] and np.all(np.isfinite(values))
+    assert capsys.readouterr().out.count("[EVAL 1]") == 1
+    plain_log, plain_sd = undisturbed(mode)
+    assert {k: v for k, v in log.items() if not k.startswith("eval/")} == plain_log
+    assert all(torch.equal(v, plain_sd[k]) for k, v in model.state_dict().items())
+
+
+def test_flow_mode_runs_no_depth_or_pose_eval(prepared, eval_trees, tmp_path, capsys):
+    """Flow mode evaluates flow alone: with the eigen and odometry data named
+    and test_interval 1, no eval runs and none is recorded."""
+    kw = {k: eval_trees[k] for k in ("raw_base_dir", "eigen_test_files_txt",
+                                     "eigen_gt_depths_npz", "kitti_odom_dir")}
+    cli.train(_cfg(prepared, tmp_path, mode="flow", num_iterations=2, test_interval=1, **kw),
+              device="cpu")
+    with open(tmp_path / "log.pkl", "rb") as f:
+        assert not [k for k in pickle.load(f) if k.startswith("eval/")]
+    assert "[EVAL" not in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("overrides", [
-    {"test_interval": 5, "gt_2012_dir": "/data/kitti2012"},
-    {"test_interval": 5, "gt_2015_dir": "/data/kitti2015"},
-    {"test_interval": 5, "raw_base_dir": "/data/kitti_raw"},
-    {"test_interval": 5, "mode": "depth", "kitti_odom_dir": "/data/odom"},
     {"num_devices": 2},
     {"num_processes": 2},
     {"coordinator_address": "localhost:1234"},
@@ -185,15 +262,12 @@ def test_flow_depth_geom_handoff(prepared, tmp_path, capsys):
     {"enable_pnp": True},
 ], ids=lambda o: "-".join(o))
 def test_unported_paths_raise(prepared, tmp_path, overrides):
-    """Interleaved eval, data parallel and the loss options that JointModel
-    refuses raise NotImplementedError before a step; the flow mode runs no
-    depth or pose eval, so an odometry dir alone does not refuse it."""
+    """Data parallel and the loss options that JointModel refuses raise
+    NotImplementedError before a step."""
     cfg = _cfg(prepared, tmp_path, **overrides)
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.train(cfg, device="cpu")
     assert not (tmp_path / "ckpt").exists()
-    cli.refuse_unported(_cfg(prepared, tmp_path, mode="flow", test_interval=5,
-                             kitti_odom_dir="/data/odom"))
 
 
 def test_module_entry_point_raises_without_a_card(prepared, tmp_path):

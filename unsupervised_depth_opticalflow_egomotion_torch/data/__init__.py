@@ -1,5 +1,8 @@
-"""Host-side data preparation and input pipeline (the port's copies)."""
+"""Host-side data preparation, input pipeline and eval datasets (the port's
+copies)."""
 
+from .kitti_flow import KittiFlowEval
+from .kitti_pose import KittiPoseEval
 from .kitti_prep import KittiOdoPrep, KittiRawPrep
 from .loader import (
     BatchLoader,
@@ -9,12 +12,16 @@ from .loader import (
     rescale_intrinsics,
 )
 from .native_loader import NativeBatchLoader, make_loader
-from .nyu import NyuPrep
+from .nyu import NyuPrep, load_nyu_test_data, test_nyu_depth
 
 __all__ = [
+    "KittiFlowEval",
+    "KittiPoseEval",
     "KittiOdoPrep",
     "KittiRawPrep",
     "NyuPrep",
+    "load_nyu_test_data",
+    "test_nyu_depth",
     "BatchLoader",
     "NativeBatchLoader",
     "make_loader",

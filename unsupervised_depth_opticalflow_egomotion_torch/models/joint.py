@@ -6,7 +6,8 @@ photometric flow objective with forward-splat or diff-weight occlusion),
 flagship joint objective with dynamic-region masks, epipolar distance maps
 and cross-task consistency). One ``nn.Module`` hosts the four sub-networks
 under the reference's state_dict names (``depth_net``, ``pose_net``,
-``fpyramid``, ``pwc_model``).
+``fpyramid``, ``pwc_model``), and the four inference methods of the eval
+path (``infer_disp``, ``infer_depth``, ``inference_flow``, ``infer_pose``).
 
 The model is built from a ``Config`` and has no defaults of its own, so it
 cannot drift from the configuration the way the JAX module's defaults do.
@@ -24,12 +25,15 @@ directly as "depth" in the reconstruction.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 
 from ..config import Config
 from ..ops import losses as L
 from ..ops import masks as M
+from ..ops.geometry import disp2depth
 from ..ops.interp import image_pyramid
 from ..ops.inverse_warp_multi import multiscale_recon_dynamic, multiscale_reconstruction
 from ..ops.splat import occlusion_mask_from_flow
@@ -117,6 +121,47 @@ class JointModel(nn.Module):
         self.pose_net = PoseNet(cfg.img_hw, cfg.num_input_frames, dtype)
         self.fpyramid = FeaturePyramid(cfg.packed_convs, dtype)
         self.pwc_model = PWCDecoder(corr_impl=cfg.pwc_corr, dtype=dtype)
+
+    # ------------------------------------------------------------------ infer
+    # The four inference methods of the JAX JointModel (joint.py:174-192). Each
+    # runs in eval mode (BatchNorm on its running statistics, as the JAX
+    # ``depth_net(img, False)``) and without autograd, whatever mode the model
+    # is in; the modules' modes are restored after. Inputs are float NHWC
+    # frames in [0, 1], cast to the compute dtype; outputs are f32.
+    @contextlib.contextmanager
+    def _inference(self):
+        modes = [(m, m.training) for m in self.modules()]
+        self.eval()
+        try:
+            with torch.no_grad():
+                yield
+        finally:
+            for m, training in modes:
+                m.training = training
+
+    def infer_disp(self, img):
+        """Raw full-resolution sigmoid disparity [B,H,W,1]."""
+        with self._inference():
+            return self.depth_net(img.to(self.dtype))[0].float()
+
+    def infer_depth(self, img):
+        """Bounded depth from the full-resolution disparity head
+        (the reference's model_geometry.py:289-292)."""
+        return disp2depth(self.infer_disp(img))
+
+    def inference_flow(self, img1, img2):
+        """Full-resolution forward flow [B,H,W,2] (model_geometry.py:294-298):
+        the feature pyramid on each image, then the PWC decoder."""
+        with self._inference():
+            hw = (img1.shape[1], img1.shape[2])
+            f1 = self.fpyramid(img1.to(self.dtype))
+            f2 = self.fpyramid(img2.to(self.dtype))
+            return self.pwc_model(f1, f2, hw)[0].float()
+
+    def infer_pose(self, imgs):
+        """[B, N-1, 6] pose vectors from channel-stacked frames [B,H,W,3N]."""
+        with self._inference():
+            return self.pose_net(imgs.to(self.dtype)).float()
 
     def _flow_warps(self, raw, img_l_pyr, img_r_pyr, flows2):
         """The centre frame reconstructed from both neighbours by the flows

@@ -45,6 +45,13 @@ def pose_vec2mat(vec: torch.Tensor) -> torch.Tensor:
     return torch.cat([euler2mat(vec[:, 3:]), vec[:, :3, None]], dim=2)
 
 
+def disp2depth(disp: torch.Tensor, min_depth: float = 0.1, max_depth: float = 100.0) -> torch.Tensor:
+    """Sigmoid disparity -> bounded depth (the reference's model_geometry.py:282-287)."""
+    min_disp = 1.0 / max_depth
+    max_disp = 1.0 / min_depth
+    return 1.0 / (min_disp + (max_disp - min_disp) * disp)
+
+
 class _PointMap(torch.autograd.Function):
     """out[..., i] = sum_j m[b,i,j] p[..., j] over the k channels of ``p``,
     plus m[b,i,k] when ``m`` has a column more than ``p`` has channels.

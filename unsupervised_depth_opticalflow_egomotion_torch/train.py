@@ -17,13 +17,21 @@ CLI, train.py:49-332):
   match the stage checkpoint, and no BatchNorm statistic;
 - flow mode's occlusion schedule (``flow_occ_switch_step``);
 - geom mode's mask dumps every ``10 * log_interval`` steps;
+- the interleaved evaluation every ``test_interval`` steps (train.py:79-119):
+  KITTI flow 2012 / 2015 where ``gt_2012_dir`` / ``gt_2015_dir`` are set,
+  and in depth and geom modes the eigen depth (``raw_base_dir``) and the
+  odometry pose (``kitti_odom_dir``) evals, recorded in ``log.pkl`` under
+  ``eval/kitti_2012``, ``eval/kitti_2015``, ``eval/eigen_depth`` and
+  ``eval/pose_odom``. It runs an f32 copy of the model (built once) that
+  takes the model's parameters and BatchNorm statistics at each eval, so
+  the model, its statistics and the optimizer are left as they were;
 - step-indexed checkpoints in ``<model_dir>/ckpt``, ``log.pkl`` and
   ``config.json`` in ``--model_dir``.
 
 It runs on the card and raises without one; ``train(cfg, device="cpu")``
 runs the plain versions of the kernels on the CPU. Not ported yet, and
-refused with ``NotImplementedError``: the interleaved evaluation (ROADMAP.md
-queue 1, item 3) and more than one device or process (item 7).
+refused with ``NotImplementedError``: more than one device or process
+(ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ import os
 import numpy as np
 import torch
 
+from . import eval_tasks
 from .config import Config, load_config
 from .data import KittiOdoPrep, KittiPreparedDataset, KittiRawPrep, NyuPrep, make_loader
+from .evaluation import load_gt_flow_kitti, load_gt_mask
 from .parallel import build_model, init_state, make_train_step, to_device_batch
 from .utils import CheckpointManager, MetricLogger, graft_params, opt_layout_tag, resolve_device
 from .visualize import dump_mask_pack
@@ -69,20 +79,72 @@ def prepare_data(cfg: Config) -> str:
 
 def refuse_unported(cfg: Config) -> None:
     """Raise for what the JAX CLI would do and the port cannot yet."""
-    evals = [name for name in ("gt_2012_dir", "gt_2015_dir") if getattr(cfg, name)]
-    if cfg.mode in ("depth", "geom"):  # train.py:86-97: depth and pose evals
-        evals += [name for name in ("raw_base_dir", "kitti_odom_dir") if getattr(cfg, name)]
-    if cfg.test_interval > 0 and evals:
-        raise NotImplementedError(
-            f"interleaved evaluation (test_interval={cfg.test_interval} with "
-            f"{', '.join(evals)}) is not ported yet (ROADMAP.md queue 1, item 3); "
-            "set test_interval: 0"
-        )
     if cfg.num_devices > 1 or cfg.num_processes > 1 or cfg.coordinator_address:
         raise NotImplementedError(
             "data parallel training over more than one device or process is not "
             "ported yet (ROADMAP.md queue 1, item 7); the port trains on one card"
         )
+
+
+def load_eval_context(cfg: Config) -> dict:
+    """The KITTI flow GT of the interleaved evals, read once (train.py:186-195):
+    flows and non-occluded masks of the benchmarks named, and 2015's moving
+    masks. Empty when ``test_interval`` is 0: no eval runs."""
+    ctx = {}
+    if not cfg.test_interval:
+        return ctx
+    if cfg.gt_2012_dir:
+        ctx["gt_flows_2012"], ctx["noc_masks_2012"] = load_gt_flow_kitti(
+            cfg.gt_2012_dir, "kitti_2012"
+        )
+    if cfg.gt_2015_dir:
+        ctx["gt_flows_2015"], ctx["noc_masks_2015"] = load_gt_flow_kitti(
+            cfg.gt_2015_dir, "kitti_2015"
+        )
+        ctx["gt_masks_2015"] = load_gt_mask(cfg.gt_2015_dir)
+    return ctx
+
+
+def run_interleaved_eval(cfg: Config, infer_fns, logger, step: int, eval_ctx: dict) -> None:
+    """The evals of train.py:79-119 through the eval model's inference
+    closures; each is printed and recorded with ``logger.add_eval``."""
+    flow_fn, disp_fn, pose_fn = infer_fns
+    if eval_ctx.get("gt_flows_2012") is not None:
+        m = eval_tasks.test_kitti_flow(
+            cfg, flow_fn, eval_ctx["gt_flows_2012"], eval_ctx["noc_masks_2012"], "kitti_2012"
+        )
+        print(f"[EVAL {step}] KITTI2012: {m}")
+        logger.add_eval(step, "kitti_2012", m)
+    if eval_ctx.get("gt_flows_2015") is not None:
+        m = eval_tasks.test_kitti_flow(
+            cfg,
+            flow_fn,
+            eval_ctx["gt_flows_2015"],
+            eval_ctx["noc_masks_2015"],
+            "kitti_2015",
+            moving_masks=eval_ctx.get("gt_masks_2015"),
+        )
+        print(f"[EVAL {step}] KITTI2015: {m}")
+        logger.add_eval(step, "kitti_2015", m)
+    if cfg.mode in ("depth", "geom") and cfg.raw_base_dir:
+        try:
+            m = eval_tasks.test_eigen_depth(cfg, disp_fn)
+            print(f"[EVAL {step}] eigen depth (absrel sqrel rms logrms a1 a2 a3): {m}")
+            logger.add_eval(step, "eigen_depth", m)
+        except FileNotFoundError as e:
+            print(f"[EVAL {step}] eigen depth skipped: {e}")
+    # pose eval for odometry runs (the reference never evals pose mid-training;
+    # without this an odometry-preset geom run has no in-training pose signal)
+    if cfg.mode in ("depth", "geom") and cfg.kitti_odom_dir:
+        try:
+            mean_err, std_err = eval_tasks.test_pose_odom(cfg, pose_fn)
+            print(
+                f"[EVAL {step}] pose ATE={mean_err[0]:.4f}+-{std_err[0]:.4f} "
+                f"RE={mean_err[1]:.4f}+-{std_err[1]:.4f}"
+            )
+            logger.add_eval(step, "pose_odom", (mean_err, std_err))
+        except FileNotFoundError as e:
+            print(f"[EVAL {step}] pose eval skipped: {e}")
 
 
 def stage_init(model: torch.nn.Module, cfg: Config) -> None:
@@ -115,6 +177,8 @@ def train(cfg: Config, device=None):
     optimizer, step)."""
     refuse_unported(cfg)
     dev = resolve_device(device)
+    # the GT first: before the card's context and the loader's threads exist
+    eval_ctx = load_eval_context(cfg)
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = True  # one input shape for the whole run
     print(f"devices: [{dev}]" + (f" {torch.cuda.get_device_name(dev)}" if dev.type == "cuda" else ""))
@@ -154,9 +218,13 @@ def train(cfg: Config, device=None):
 
     logger = MetricLogger(cfg.model_dir)
     cfg.dump(os.path.join(cfg.model_dir, "config.json"))
-    eval_model = None
-    if cfg.mode == "geom" and cfg.log_interval:
+    # one f32 copy of the model, built once, for the mask dumps and the
+    # interleaved evals
+    dumps = cfg.mode == "geom" and cfg.log_interval
+    eval_model = infer_fns = None
+    if dumps or cfg.test_interval:
         eval_model = build_model(cfg.replace(compute_dtype="float32"), dev).eval()
+        infer_fns = eval_tasks.make_inference_fns(eval_model, dev)
 
     # flow-mode occlusion schedule: splat_nn for the bulk of training, the
     # 4-tap bilinear splat for the tail
@@ -177,6 +245,9 @@ def train(cfg: Config, device=None):
             model.cfg = cfg_tail  # the forward reads its routes from model.cfg
             step_fn = make_train_step(model, cfg_tail, optimizer)
             print(f"[{step}] occlusion schedule: switching to flow_occ_impl=splat")
+        if cfg.test_interval and step % cfg.test_interval == 0 and step > start_step:
+            eval_model.load_state_dict(model.state_dict())
+            run_interleaved_eval(cfg, infer_fns, logger, step, eval_ctx)
 
         batch = to_device_batch(batch_np, dev)
         metrics = step_fn(batch)
@@ -187,7 +258,7 @@ def train(cfg: Config, device=None):
             scalars = {k: float(v) for k, v in metrics.items()}
             logger.add_scalars(step, scalars)
             logger.print_losses(step, cfg.num_iterations, scalars)
-        if eval_model is not None and step % (10 * cfg.log_interval) == 0:
+        if dumps and step % (10 * cfg.log_interval) == 0:
             dump_masks(eval_model, model, batch, batch_np,
                        os.path.join(cfg.model_dir, "images"), step, logger)
         if cfg.save_interval and step % cfg.save_interval == 0:

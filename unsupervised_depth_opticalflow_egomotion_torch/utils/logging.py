@@ -37,6 +37,10 @@ class MetricLogger:
             if self._tb is not None:
                 self._tb.add_scalar(k, float(v), step)
 
+    def add_eval(self, step: int, name: str, values) -> None:
+        """An interleaved eval's metrics, kept as given under ``eval/<name>``."""
+        self.history[f"eval/{name}"].append((step, values))
+
     def add_image(self, step: int, name: str, img: "object") -> None:
         """TB image ([H,W] or [H,W,3] uint8); no-op without tensorboardX."""
         if self._tb is None:
