@@ -26,18 +26,27 @@ uses card 0). Phases, in order; any failure exits non-zero:
    signatures (dtype codes and sizes) it was launched with; phase 5 fails if
    a train step launches a kernel with a signature that this phase did not
    hold against the plain version. The f32 shapes of the CLI's geom mask
-   dump (phase 6) are held here too.
+   dump (phase 6) are held here too, and so are the half-size bf16 warps
+   and SSIM planes and the flow-mode splats of loss_base_scale=1, and the
+   cost volume of phase 8's one-pair f32 flow inference.
 4. parity: one train step with the kernels on the card against the plain
-   versions on the CPU, at 64x128 b2 in f32 (TF32 off), from the same seed:
-   the geom step under the default Config, a flow step under
-   flow_occ_impl="splat" and a depth step.
+   versions on the CPU, at 64x128 b2 in f32 (TF32 off), from the same seed
+   and the same draws: the geom step under the default Config, a flow step
+   under flow_occ_impl="splat" and a depth step; the geom step with the
+   triangulation, PnP, eight-point and depth consistency losses (each
+   nonzero on both sides); and the geom, flow ("splat") and depth steps at
+   loss_base_scale=1.
 5. train: the train steps at b8 256x832 bf16 on uint8 frames. The geom step
    under the default Config (warm-up, then timed steps, a frames/s line in
    bench.py's shape, a short profile of one step); the same step under
    ssim_impl="xla" (timed in the same call, for comparison); the flow step
    under flow_occ_impl="splat" (timed, its own frames/s line and profile)
    and under the default "splat_nn"; the depth step (timed briefly, and
-   profiled); the geom step under warp_impl="pallas", pwc_corr="pallas". Every run zeroes the launch
+   profiled); the geom step under warp_impl="pallas", pwc_corr="pallas";
+   the geom step with the four optional losses (w_8point 0.001) and at
+   loss_base_scale=1 (timed, a frames/s line each and their ratio to the
+   default geom step's); the flow ("splat") and depth steps at
+   loss_base_scale=1. Every run zeroes the launch
    counts just before and reads them just after, and checks finite losses,
    moved parameters of the networks the mode trains, bit-equal parameters of
    the others, the exact launch count of every kernel, and that every
@@ -67,12 +76,22 @@ uses card 0). Phases, in order; any failure exits non-zero:
    forward (f32, B = 8, 5 launches a batch), and a device-resident batch
    of each inference. Every launch of the phase must have a signature
    that phase 3 held. Runs before phase 5's profiles.
+8. synth: ``train_synth_long`` at b8 256x832 bf16 on a generated synthetic
+   world (16 train stacks, 4 eval frames) in the same temporary directory:
+   flow 20 steps through the occlusion switch, depth 20 steps, geom 20
+   steps grafted from both with the four optional losses, and a resume of
+   geom through ``python3 -m``. Checks finite losses, the sampled losses
+   nonzero at every logged geom step and the depth consistency nonzero
+   exactly where the depth photometric loss (the same dynamic mask) is, the
+   synth_eval records before and after each stage, the mask dump, the
+   checkpoints and the launch signatures of the in-process stages. Runs
+   before phase 5's profiles.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with a row per kernel (its launches, times, device
 times and bound on the first of the paths geom, flow, depth, geom_regather,
-eval_flow that launches it, named in "path", and the same for every path
-under "by_path"), and
+eval_flow, geom_all, geom_ls1, flow_ls1, depth_ls1 that launches it, named
+in "path", and the same for every path under "by_path"), and
 {"ok": true, "device": {...}}. Details (per-shape kernel table, compiler
 report, profiles) go to chiprun_out/chip_smoke/.
 """
@@ -100,10 +119,13 @@ SPLAT_FLOPS_PER_PIXEL = 20
 _TPU = "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/"
 # the paths that the kernel table reports, in the order in which a kernel's
 # row picks its path: the train paths of phase 5 (geom_regather is the geom
-# step under warp_impl="pallas", pwc_corr="pallas"; a "step" is a train
-# step) and phase 7's eval_flow (the f32 flow inference of the KITTI 2015
-# eval; a "step" is a batch of 8 pairs)
-PATHS = ("geom", "flow", "depth", "geom_regather", "eval_flow")
+# step under warp_impl="pallas", pwc_corr="pallas"; geom_all the geom step
+# with the triangulation, PnP, eight-point and depth consistency losses;
+# geom_ls1, flow_ls1 and depth_ls1 the steps at loss_base_scale=1, flow
+# under "splat"; a "step" is a train step) and phase 7's eval_flow (the f32
+# flow inference of the KITTI 2015 eval; a "step" is a batch of 8 pairs)
+PATHS = ("geom", "flow", "depth", "geom_regather", "eval_flow", "geom_all", "geom_ls1",
+         "flow_ls1", "depth_ls1")
 CHECKED: dict[str, set] = {}  # kernel -> launch signatures held in phase 3
 
 
@@ -274,12 +296,19 @@ def phase_kernels():
     # f32 case with TF32 off, and the f32 warps of the CLI's geom mask dump
     # (one item: 2B = 2, f32 out; on no path of the table: checked, not
     # summed).
-    both = {"geom": 2, "flow": 1}
+    # At loss_base_scale=1 no warp samples the uint8 frames: the geom and
+    # flow steps warp bf16 frames at 128x416 and below (2B = 16), the depth
+    # step at 128x416 and below (B = 8).
+    both = {"geom": 2, "flow": 1, "geom_all": 2}
+    half = {**both, "geom_ls1": 2, "flow_ls1": 1}
     cases = [
-        ("uint8", 16, 256, 832, both), ("bfloat16", 16, 128, 416, both),
-        ("bfloat16", 16, 64, 208, both), ("bfloat16", 16, 32, 104, {"flow": 1}),
-        ("bfloat16", 8, 256, 832, {"depth": 2}), ("bfloat16", 8, 128, 416, {"depth": 2}),
-        ("bfloat16", 8, 64, 208, {"depth": 2}),
+        ("uint8", 16, 256, 832, both), ("bfloat16", 16, 128, 416, half),
+        ("bfloat16", 16, 64, 208, half),
+        ("bfloat16", 16, 32, 104, {"flow": 1, "geom_ls1": 2, "flow_ls1": 1}),
+        ("bfloat16", 8, 256, 832, {"depth": 2}),
+        ("bfloat16", 8, 128, 416, {"depth": 2, "depth_ls1": 2}),
+        ("bfloat16", 8, 64, 208, {"depth": 2, "depth_ls1": 2}),
+        ("bfloat16", 8, 32, 104, {"depth_ls1": 2}),
         ("float32", 16, 256, 832, {}),
         ("uint8", 2, 256, 832, {}, "float32"), ("float32", 2, 128, 416, {}),
         ("float32", 2, 64, 208, {}),
@@ -367,13 +396,17 @@ def phase_kernels():
     # rows are 8-byte aligned; the five levels of the CLI's f32 mask dump and
     # of an eval's last short batch (B = 2: KITTI 2012's 194 = 24 x 8 + 2);
     # and the five levels of the eval's f32 flow inference at B = 8
-    # ("eval": the forward alone, on the eval_flow path)
+    # ("eval": the forward alone, on the eval_flow path), and at B = 1 (the
+    # synthetic world's eval of phase 8 infers one pair at a time)
     levels = [(4, 13, 196), (8, 26, 128), (16, 52, 96), (32, 104, 64), (64, 208, 32)]
     cases = [(h, w, c, "bfloat16", "train", 16) for h, w, c in levels] + [
         (64, 208, 32, "float32", None, 16), (4, 13, 196, "float32", None, 16)] + [
-        (h, w, c, "float32", None, 2) for h, w, c in levels] + [
+        (h, w, c, "float32", None, bb) for h, w, c in levels for bb in (2, 1)] + [
         (h, w, c, "float32", "eval", 8) for h, w, c in levels]
-    train_corr = {"geom": 1, "flow": 1}
+    train_corr = {"geom": 1, "flow": 1, "geom_all": 1, "geom_ls1": 1, "flow_ls1": 1}
+    # at loss_base_scale=1 the finest flow (the 64x208 level's) feeds no
+    # loss: its cost volume is computed, but autograd launches no backward
+    no_ls1 = {"geom_ls1": 0, "flow_ls1": 0}
     for h, w, c, dts, on_path, b in cases:
         md, nd = 4, 81
         dt = getattr(torch, dts)
@@ -410,7 +443,8 @@ def phase_kernels():
             rows.append(dict(
                 kernel=name, shape=f"{dts}[{b},{h},{w},{c}]",
                 # pwc_corr="pallas" and the eval launch the forward kernel only
-                per_step=({**train_corr, **({"geom_regather": 1} if name == "corr_fwd" else {})}
+                per_step=({**train_corr, **({"geom_regather": 1} if name == "corr_fwd" else
+                                            no_ls1 if h == 64 else {})}
                           if on_path == "train" else
                           {"eval_flow": 1} if on_path == "eval" and name == "corr_fwd" else {}),
                 max_abs_err=err, tol=rel * scale, ok=err <= rel * scale,
@@ -424,10 +458,14 @@ def phase_kernels():
     # differ by noise, a third of the pixels zeroed in both (as the loss's
     # mask products do). Value, both gradients, and the border ring (where
     # the zero padding acts) on its own.
-    # The CLI's f32 mask dump takes the three scales of one item (B = 1).
-    three = {"geom": 2, "flow": 2, "geom_regather": 2}
-    cases = [(256, 832, 3, "bfloat16", three, 8), (128, 416, 3, "bfloat16", three, 8),
-             (64, 208, 3, "bfloat16", three, 8), (256, 832, 3, "float32", {}, 8),
+    # The CLI's f32 mask dump takes the three scales of one item (B = 1). At
+    # loss_base_scale=1 the planes are half the size: 128x416 down to 32x104.
+    three = {"geom": 2, "flow": 2, "geom_regather": 2, "geom_all": 2}
+    three_half = {**three, "geom_ls1": 2, "flow_ls1": 2}
+    cases = [(256, 832, 3, "bfloat16", three, 8), (128, 416, 3, "bfloat16", three_half, 8),
+             (64, 208, 3, "bfloat16", three_half, 8),
+             (32, 104, 3, "bfloat16", {"geom_ls1": 2, "flow_ls1": 2}, 8),
+             (256, 832, 3, "float32", {}, 8),
              (64, 208, 5, "bfloat16", {}, 8)] + [
              (h, w, 3, "float32", {}, 1) for h, w in ((256, 832), (128, 416), (64, 208))]
     for h, w, c, dts, per_step, b in cases:
@@ -491,9 +529,11 @@ def phase_kernels():
     # order that changes from run to run: 1e-5 of the largest mass in f32;
     # bf16 adds the one rounding of the output. A random flow piles mass up
     # (a largest mass above 1.5 shows that the case tests the sums).
+    # (flow_ls1: the three flow scales from 128x416 down)
     two = {"flow": 2}
-    cases = [(256, 832, "bfloat16", two, "random"), (128, 416, "bfloat16", two, "random"),
-             (64, 208, "bfloat16", two, "random"), (32, 104, "bfloat16", two, "random"),
+    two_half = {"flow": 2, "flow_ls1": 2}
+    cases = [(256, 832, "bfloat16", two, "random"), (128, 416, "bfloat16", two_half, "random"),
+             (64, 208, "bfloat16", two_half, "random"), (32, 104, "bfloat16", two_half, "random"),
              (256, 832, "bfloat16", {}, "smooth"), (256, 832, "bfloat16", {}, "zero"),
              (256, 832, "float32", {}, "random"), (256, 832, "float32", {}, "far")]
     for h, w, dts, per_step, kind in cases:
@@ -561,32 +601,67 @@ NETS = {"flow": ("fpyramid", "pwc_model"), "depth": ("depth_net", "pose_net"),
         "geom": ("depth_net", "pose_net", "fpyramid", "pwc_model")}
 
 
+# the geom losses that sample matches (ill-conditioned at init: see phase_parity)
+SAMPLED = ("loss_triangle", "loss_pnp", "loss_eight_point")
+GEO_LOSSES = {"enable_triangle": True, "enable_pnp": True, "enable_eight_point": True,
+              "enable_depth_consis": True}
+
+
 def phase_parity():
     """Kernels on the card vs plain versions on the CPU, through one whole
-    train step at 64x128 b2 f32 (TF32 off), same weights and batch: the geom
-    step under the default Config, a flow step ("splat") and a depth step."""
+    train step at 64x128 b2 f32 (TF32 off), same weights, batch and draws:
+    the geom step under the default Config, a flow step ("splat") and a depth
+    step; the geom step with the four optional losses; and the geom, flow
+    ("splat") and depth steps at loss_base_scale=1.
+
+    Losses to 1e-3 relative + 1e-7 (tests/test_torch_geom.py), 3e-3 at
+    loss_base_scale=1 (an 8x16 coarsest scale, where one hard-mask pixel
+    that flips moves a loss by ~2e-3: tests/test_torch_synth.py) and 5e-3
+    for the depth consistency. The sampled losses are ill-conditioned in f32
+    at init (tests/test_torch_synth.py, SAMPLED_TOL): triangulation to 3e-2
+    and PnP to 0.2 of the batch's max, the eight-point loss to its range;
+    the gradient compared is then that of the weighted total without them."""
     import torch
 
-    from unsupervised_depth_opticalflow_egomotion_torch.config import Config
-    from unsupervised_depth_opticalflow_egomotion_torch.parallel import init_state, make_train_step
+    from unsupervised_depth_opticalflow_egomotion_torch.config import Config, loss_weights
+    from unsupervised_depth_opticalflow_egomotion_torch.parallel import init_state
+    from unsupervised_depth_opticalflow_egomotion_torch.parallel.train_step import step_draws
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for kw in ({"mode": "geom"}, {"mode": "flow", "flow_occ_impl": "splat"}, {"mode": "depth"}):
+    for kw in ({"mode": "geom"}, {"mode": "flow", "flow_occ_impl": "splat"}, {"mode": "depth"},
+               {"mode": "geom", **GEO_LOSSES},
+               {"mode": "geom", "loss_base_scale": 1},
+               {"mode": "flow", "flow_occ_impl": "splat", "loss_base_scale": 1},
+               {"mode": "depth", "loss_base_scale": 1}):
         cfg = Config(img_hw=(64, 128), batch_size=2, compute_dtype="float32", **kw)
+        weights = loss_weights(cfg)
         res = {}
         for dev in ("cpu", "cuda"):
-            model, opt = init_state(cfg, dev)
-            metrics = make_train_step(model, cfg, opt)(_batch(2, 64, 128, dev))
+            model, _ = init_state(cfg, dev)
+            batch = _batch(2, 64, 128, dev)
+            if cfg.mode == "geom":
+                pack = model.forward_geom(*batch, draws=step_draws(model, 0, batch))[0]
+            else:
+                pack = (model.forward_flow if cfg.mode == "flow" else model.forward_depth)(*batch)
+            sum(weights[k] * v.mean() for k, v in pack.items() if k not in SAMPLED).backward()
             res[dev] = (
-                {k: float(v) for k, v in metrics.items()},
+                {k: v.detach().cpu().numpy() for k, v in pack.items()},
                 {k: p.grad.detach().float().cpu() for k, p in model.named_parameters()
                  if p.grad is not None},
             )
-        (m_cpu, g_cpu), (m_gpu, g_gpu) = res["cpu"], res["cuda"]
-        # the tolerance of tests/test_torch_geom.py: 1e-3 relative + 1e-7 absolute
-        loss_ok = all(abs(m_gpu[k] - m_cpu[k]) <= 1e-3 * abs(m_cpu[k]) + 1e-7 for k in m_cpu)
-        worst_loss = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-7) for k in m_cpu)
+        (p_cpu, g_cpu), (p_gpu, g_gpu) = res["cpu"], res["cuda"]
+        rtol = 3e-3 if cfg.loss_base_scale else 1e-3
+        worst_loss, loss_ok = 0.0, set(p_cpu) == set(p_gpu)  # worst: error over tolerance
+        for k, want in p_cpu.items():
+            got, scale = p_gpu[k], max(abs(want).max(), 1e-7)
+            if k == "loss_eight_point":
+                loss_ok &= bool(((got >= 0) & (got <= 2 / 9)).all())
+                continue
+            tol = {"loss_triangle": 3e-2 * scale, "loss_pnp": 0.2 * scale}.get(
+                k, (5e-3 if k == "loss_depth_consis" else rtol) * abs(want) + 1e-7)
+            loss_ok &= bool((abs(got - want) <= tol).all())
+            worst_loss = max(worst_loss, float((abs(got - want) / tol).max()))
         worst_grad = 0.0
         for net in NETS[cfg.mode]:
             ks = [k for k in g_cpu if k.startswith(net + ".")]
@@ -594,16 +669,30 @@ def phase_parity():
             b = torch.cat([g_cpu[k].flatten() for k in ks])
             worst_grad = max(worst_grad, ((a - b).norm() / b.norm()).item())
         same_nets = set(g_cpu) == set(g_gpu)
-        log(f"parity {cfg.mode} 64x128 f32 card vs cpu: loss rel err {worst_loss:.3g} "
-            f"(tol 1e-3 + 1e-7 abs), gradient rel L2 err {worst_grad:.3g} (tol 2e-2), "
-            f"loss_total {m_gpu['loss_total']:.6f}")
+        name = " ".join(f"{k}={v}" for k, v in kw.items() if k != "mode" and k not in GEO_LOSSES)
+        name += " +triangle,pnp,eight_point,depth_consis" if "enable_pnp" in kw else ""
+        sampled = ", ".join(f"{k} {p_gpu[k].mean():.4g} vs {p_cpu[k].mean():.4g}"
+                            for k in SAMPLED if k in p_cpu and abs(p_cpu[k]).max() > 0)
+        log(f"parity {cfg.mode} {name} 64x128 f32 card vs cpu: worst loss error "
+            f"{worst_loss:.3g} of its tolerance ({rtol:g} relative + 1e-7), gradient "
+            f"rel L2 err {worst_grad:.3g} (tol 2e-2)"
+            + (f"; sampled losses card vs cpu: {sampled}" if sampled else ""))
         if not (loss_ok and worst_grad <= 2e-2 and same_nets):
-            fail(f"the card's {cfg.mode} step disagrees with the plain CPU step")
+            fail(f"the card's {cfg.mode} {name} step disagrees with the plain CPU step")
+        # the optional losses are held live: at init the dynamic mask keeps
+        # pixels, so the depth consistency it gates is nonzero on both sides
+        if "enable_pnp" in kw:
+            dead = sorted({k for k in (*SAMPLED, "loss_depth_consis") for p in (p_cpu, p_gpu)
+                           if not (abs(p[k]) > 0).all()})
+            if dead:
+                fail(f"the {cfg.mode} {name} step: an optional loss is zero: {dead}")
 
 
 WATCH = {"depth_net": "depth_net.encoder.encoder.conv1.weight",
          "pose_net": "pose_net.pose_conv.weight",
-         "fpyramid": "fpyramid.conv1.0.weight", "pwc_model": "pwc_model.predict_flow2.weight"}
+         # the coarsest PWC level feeds every flow scale (at loss_base_scale=1
+         # the finest head, predict_flow2, feeds no loss and stays put)
+         "fpyramid": "fpyramid.conv1.0.weight", "pwc_model": "pwc_model.conv6_0.0.weight"}
 
 
 def _start(name, overrides):
@@ -621,7 +710,7 @@ def _start(name, overrides):
     model, opt = init_state(cfg)
     return {
         "name": name, "cfg": cfg, "model": model, "step": make_train_step(model, cfg, opt),
-        "batch": _batch(b, h, w, torch.device("cuda")),
+        "batch": _batch(b, h, w, torch.device("cuda")), "steps": 0,
         "before": {k: p.detach().clone() for k, p in model.named_parameters()},
     }
 
@@ -644,11 +733,13 @@ def _drive(run, per_step, warmup, timed):
         k.launches = 0
         k.seen.clear()
     for _ in range(warmup):
-        metrics = step(batch)
+        metrics = step(batch, run["steps"])  # the step number seeds the sampled losses' draws
+        run["steps"] += 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(timed):
-        metrics = step(batch)
+        metrics = step(batch, run["steps"])
+        run["steps"] += 1
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {n: k.launches for n, k in kernels.items()}
@@ -728,8 +819,38 @@ def phase_train(smi: str):
                  "PyTorch port)", ms_f, smi)
     depth = _start("depth", {"mode": "depth"})
     ms_d, _ = drive(depth, {"warp_gather": 6}, 2, 3, "depth")
+
+    # the geom step with the four optional losses (the eight-point loss at
+    # the weight configs/kitti_geom.yaml names as stable), and at
+    # loss_base_scale=1: the kernels of the default geom step. The sampled
+    # losses and the source depth of the depth consistency run on no kernel,
+    # so the launch counts are the default's too, but at ls=1: there every
+    # warp samples bf16 frames, and the finest flow feeds no loss, so its
+    # cost volume's backward is not launched (4 launches of each half a
+    # step, not 5)
+    corr_ls1 = {"corr_fwd": 5, "corr_bwd_df1": 4, "corr_bwd_df2": 4}
+    ratios = []
+    for name, path, overrides, per_step in (
+        ("geom +triangle,pnp,eight_point,depth_consis", "geom_all",
+         {**GEO_LOSSES, "w_8point": 0.001}, geom_k),
+        ("geom loss_base_scale=1", "geom_ls1", {"loss_base_scale": 1},
+         {**geom_k, **corr_ls1}),
+    ):
+        run = _start(name, overrides)
+        ms, _ = drive(run, per_step, 3, 5, path)
+        _metric_line(f"frames/sec {name} fwd-bwd (b8 256x832 bf16, PyTorch port)", ms, smi)
+        ratios.append(f"{name} {ms_g / ms:.3f}x")
+        del run
+        torch.cuda.empty_cache()
+    log(f"frames/s against the default geom step's {8 / ms_g * 1e3:.2f} in this call: "
+        + ", ".join(ratios))
     for name, path, overrides, per_step in (
         ("flow splat_nn", None, {"mode": "flow"}, {"warp_gather": 4, **corr, **ssim}),
+        ("flow splat loss_base_scale=1", "flow_ls1",
+         {"mode": "flow", "flow_occ_impl": "splat", "loss_base_scale": 1},
+         {"warp_gather": 3, **corr_ls1, **ssim, "splat_mass": 6}),
+        ("depth loss_base_scale=1", "depth_ls1", {"mode": "depth", "loss_base_scale": 1},
+         {"warp_gather": 6}),
         ("geom warp_impl=pallas pwc_corr=pallas", "geom_regather",
          {"warp_impl": "pallas", "pwc_corr": "pallas"},
          {"warp_gather_nograd": 6, "warp_gather_bwd": 6, "corr_fwd": 5, **ssim}),
@@ -1437,6 +1558,116 @@ def phase_eval(smi: str, root: str):
     return launches, 25
 
 
+SYNTH_STEPS = 20  # a stage of phase 8
+SYNTH_LOSSES = ["--enable_losses", "triangle,pnp,eight_point,depth_consis",
+                "--set", "w_8point=0.001"]
+
+
+def phase_synth(root: str):
+    """The synthetic-world learning script (``train_synth_long`` of the port)
+    at 256x832 b8 bf16 on a generated world of 16 train stacks and 4 eval
+    frames: flow 20 steps through the occlusion switch (at step 10), depth 20
+    steps, geom 20 steps grafted from both with the four optional losses,
+    in this process, then a resume of geom to 25 steps through ``python3 -m``.
+    Checks finite losses, the geom stage's optional losses (sampled: nonzero
+    at every logged step; depth consistency: nonzero where its mask is not
+    empty), curves.jsonl with a synth_eval record before the first step and
+    at the last, the geom mask dump, the checkpoints, and that every launch
+    of the in-process stages had a signature phase 3 held."""
+    import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch import synth_world
+    from unsupervised_depth_opticalflow_egomotion_torch import train_synth_long as tsl
+
+    t_start = time.perf_counter()
+    world = os.path.join(root, "synth_world")
+    synth_world.generate(world, n_train=16, n_eval=4, hw=(256, 832), seed=0)
+    t_gen = time.perf_counter() - t_start
+    kernels = {n: k for n, (k, _) in path_kernels().items()}
+    for k in kernels.values():
+        k.launches = 0
+        k.seen.clear()
+    common = ["--data", world, "--batch", "8", "--log_every", "5",
+              "--eval_every", str(SYNTH_STEPS), "--image_every", str(SYNTH_STEPS)]
+    out = {m: os.path.join(root, f"synth_{m}") for m in ("flow", "depth", "geom")}
+    steps = str(SYNTH_STEPS)
+    stages = [
+        ("flow", ["--mode", "flow", "--flow_occ_switch_step", "10"]),
+        ("depth", ["--mode", "depth"]),
+        ("geom", ["--mode", "geom", "--graft_flow", os.path.join(out["flow"], "ckpt"),
+                  "--graft_depth", os.path.join(out["depth"], "ckpt"), *SYNTH_LOSSES]),
+    ]
+    times = {}
+    for mode, extra in stages:
+        t0 = time.perf_counter()
+        _, step = tsl.main(common + ["--out", out[mode], "--steps", steps, *extra])
+        times[mode] = time.perf_counter() - t0
+        if step != SYNTH_STEPS:
+            fail(f"synth {mode}: stopped at step {step} (non-finite loss?)")
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    unchecked = {n: sorted(k.seen - CHECKED[n]) for n, k in kernels.items() if k.seen - CHECKED[n]}
+    if unchecked:
+        fail(f"synth: launches with signatures that the kernels phase did not hold: {unchecked}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "unsupervised_depth_opticalflow_egomotion_torch.train_synth_long",
+         *common, "--out", out["geom"], "--mode", "geom", "--steps", str(SYNTH_STEPS + 5),
+         "--resume", *SYNTH_LOSSES],
+        capture_output=True, text=True, timeout=600,
+    )
+    times["geom resume (python3 -m)"] = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, "synth_resume.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0 or f"resumed from step {SYNTH_STEPS}" not in proc.stdout:
+        fail(f"synth: the resume exited {proc.returncode}: {proc.stderr[-2000:]}")
+
+    summary = {}
+    for mode in ("flow", "depth", "geom"):
+        recs = [json.loads(line) for line in open(os.path.join(out[mode], "curves.jsonl"))]
+        evals = {r["step"]: r["eval"] for r in recs if "eval" in r}
+        last = SYNTH_STEPS + 5 if mode == "geom" else SYNTH_STEPS
+        if sorted(evals) != sorted({0, SYNTH_STEPS, last}):
+            fail(f"synth {mode}: synth_eval at steps {sorted(evals)}, expected 0, {last}")
+        losses = [r for r in recs if "loss_total" in r]
+        if not losses or not all(math.isfinite(v) for r in losses for k, v in r.items()
+                                 if k.startswith("loss")):
+            fail(f"synth {mode}: non-finite or missing losses")
+        keys = {"flow": ("flow_epe",), "depth": ("depth_absrel", "pose_ate", "pose_ate_zero"),
+                "geom": ("flow_epe", "depth_absrel", "pose_ate", "pose_ate_zero")}[mode]
+        summary[mode] = {s: {k: round(evals[s][k], 4) for k in keys} for s in (0, last)}
+        # the in-process stage's last log (the resume's covers its start-up)
+        summary[mode]["fps_last"] = next(r["fps"] for r in losses if r["step"] == SYNTH_STEPS)
+        if mode == "geom":
+            # the sampled losses read no mask: nonzero at every logged step.
+            # The depth consistency is gated by the dynamic mask, which the
+            # depth photometric loss reads too; in this short chain the rigid
+            # flow of a 20-step depth stage often disagrees with the optical
+            # flow everywhere, the mask is empty and both are zero (phase 4
+            # holds the loss live at init), so it must be nonzero exactly
+            # where the photometric loss is
+            bad = [r["step"] for r in losses
+                   if not all(abs(r[k]) > 0 for k in SAMPLED)
+                   or (r["loss_depth_consis"] == 0) != (r["loss_depth_pixel"] == 0)]
+            if bad:
+                fail(f"synth geom: an optional loss is zero at logged steps {bad}: {losses}")
+            summary[mode]["logged_steps_depth_mask_empty"] = sorted(
+                r["step"] for r in losses if r["loss_depth_pixel"] == 0)
+            dump = os.path.join(out[mode], "images", f"step_{SYNTH_STEPS:08d}", "fwd_mask.png")
+            if not os.path.exists(dump):
+                fail("synth geom: no mask dump")
+        ckpts = sorted(int(f[:-3]) for f in os.listdir(os.path.join(out[mode], "ckpt"))
+                       if f.endswith(".pt"))
+        if ckpts[-1] != last:
+            fail(f"synth {mode}: checkpoints {ckpts}")
+    log(f"synth: world of 16 stacks + 4 eval frames at 256x832 generated in {t_gen:.1f} s; "
+        f"stage seconds {json.dumps({k: round(v, 1) for k, v in times.items()})}; "
+        f"launches of the in-process stages {json.dumps(launches)}")
+    log(f"synth: synth_eval before and after each stage (loss-free check, not a learning "
+        f"claim at {SYNTH_STEPS} steps): {json.dumps(summary)}")
+    log(f"synth: phase {time.perf_counter() - t_start:.1f} s")
+
+
 def _profile(name, step, batch, step_ms: float, verbose: bool):
     """Device time by kernel and by launching op over two profiled steps;
     the busy share is the kernels' device time over the unprofiled step.
@@ -1503,6 +1734,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         phase_cli(smi, ms_geom, root)
         by_path["eval_flow"] = phase_eval(smi, root)
+        phase_synth(root)
     profiles()
 
     table = []

@@ -221,12 +221,13 @@ def test_multiscale_recon_dynamic():
     flows = _pyr(90, c=2, lo=-2, hi=2)
     pose = _pose(b, 2)
     K, _ = _intrinsics(b, h, w)
-    got = t_recon(_t(ref), _t(K), [_t(d) for d in depths], _t(pose), [_t(f) for f in flows],
-                  0.01, 0.5, ref_img_u8=_t(raw))
+    got = t_recon(_t(ref), _t(K), [_t(d) for d in depths], [_t(d) for d in depths], _t(pose),
+                  [_t(f) for f in flows], 0.01, 0.5, ref_img_u8=_t(raw))
     want = j_recon(jnp.asarray(ref), jnp.asarray(K), [jnp.asarray(d) for d in depths],
                    [jnp.asarray(d) for d in depths], jnp.asarray(pose),
                    [jnp.asarray(f) for f in flows], 0.01, 0.5, ref_img_u8=jnp.asarray(raw))
+    assert got[2] == want[2] == [None] * len(depths)  # no sampled source depth
     recs, valids, _, cdepths, fds, dyns, scores = want
-    for g, ws in zip(got, (recs, valids, cdepths, fds, dyns, scores)):
+    for g, ws in zip(got[:2] + got[3:], (recs, valids, cdepths, fds, dyns, scores)):
         for a, bb in zip(g, ws):
             _close(a, bb, rtol=1e-4, atol=1e-4)

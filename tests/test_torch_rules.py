@@ -130,6 +130,16 @@ def test_ssim_pallas_raises_for_cuda():
             assert not ("NotImplementedError" in line and "ssim" in line), f"{f}: {line}"
 
 
+# option -> (mode, the loss it switches on)
+_OPTION_LOSS = {
+    "enable_triangle": ("geom", "loss_triangle"),
+    "enable_pnp": ("geom", "loss_pnp"),
+    "enable_eight_point": ("geom", "loss_eight_point"),
+    "enable_depth_consis": ("geom", "loss_depth_consis"),
+    "loss_base_scale": ("geom", "loss_total"),
+}
+
+
 @pytest.mark.parametrize(
     "flag",
     [
@@ -142,30 +152,42 @@ def test_ssim_pallas_raises_for_cuda():
     ],
 )
 def test_unported_options_raise(flag):
-    with pytest.raises(NotImplementedError):
-        JointModel(_cfg(**flag))
+    """``encoder_int8`` is not ported and raises. The name is kept from when
+    the other five raised too: now each builds and trains. Two CPU steps on
+    one batch with the same draws: the option's loss is finite and non-zero,
+    and the first step moved it (through the parameters alone)."""
+    (name,) = flag
+    if name == "encoder_int8":
+        with pytest.raises(NotImplementedError):
+            JointModel(_cfg(**flag))
+        return
+    mode, loss = _OPTION_LOSS[name]
+    cfg = _cfg(mode=mode, **flag)
+    model, opt = init_state(cfg, "cpu")
+    step = make_train_step(model, cfg, opt)
+    m1, m2 = step(_batch(), 0), step(_batch(), 0)
+    assert all(torch.isfinite(v) for v in (*m1.values(), *m2.values()))
+    assert float(m1[loss]) != 0 and float(m1[loss]) != float(m2[loss]), (m1[loss], m2[loss])
 
 
 def test_unported_modes_raise():
     """What raises at build time (the test keeps the name it had when only
-    geom mode was ported): all three modes build; an unknown mode or
-    kernel-selecting value raises ValueError; what a mode has not ported raises
-    NotImplementedError (depth consistency in geom mode, the loss base
-    scale in every mode)."""
+    geom mode was ported): all three modes build, with depth consistency and
+    the loss base scale too; an unknown mode or kernel-selecting value, or a
+    loss base scale past the decoder's four flow scales, raises ValueError;
+    ``encoder_int8`` raises NotImplementedError in every mode."""
     for mode in ("flow", "depth", "geom"):
         assert build_model(_cfg(mode=mode), "cpu").cfg.mode == mode
-    JointModel(_cfg(mode="depth", enable_depth_consis=True))
+        JointModel(_cfg(mode=mode, enable_depth_consis=True))
+        JointModel(_cfg(mode=mode, loss_base_scale=1))
+        with pytest.raises(NotImplementedError):
+            JointModel(_cfg(mode=mode, encoder_int8=True))
     for bad in (
         {"mode": "stereo"}, {"flow_occ_impl": "splat_cuda"}, {"warp_impl": "windowed"},
-        {"pwc_corr": "cudnn"},
+        {"pwc_corr": "cudnn"}, {"loss_base_scale": 2}, {"loss_base_scale": -1},
     ):
         with pytest.raises(ValueError):
             JointModel(_cfg(**bad))
-    for mode in ("flow", "depth"):
-        with pytest.raises(NotImplementedError):
-            JointModel(_cfg(mode=mode, loss_base_scale=1))
-    with pytest.raises(NotImplementedError):
-        JointModel(_cfg(mode="geom", enable_depth_consis=True))
 
 
 def test_kernel_sources_and_counters():

@@ -262,12 +262,23 @@ def test_flow_mode_runs_no_depth_or_pose_eval(prepared, eval_trees, tmp_path, ca
     {"enable_pnp": True},
 ], ids=lambda o: "-".join(o))
 def test_unported_paths_raise(prepared, tmp_path, overrides):
-    """Data parallel and the loss options that JointModel refuses raise
-    NotImplementedError before a step."""
-    cfg = _cfg(prepared, tmp_path, **overrides)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.train(cfg, device="cpu")
-    assert not (tmp_path / "ckpt").exists()
+    """Data parallel raises NotImplementedError before a step. The name is
+    kept from when the loss base scale and the PnP loss raised too: now they
+    train, and two steps of the CLI save finite losses with the option's
+    loss non-zero."""
+    cfg = _cfg(prepared, tmp_path, num_iterations=2, **overrides)
+    if "loss_base_scale" not in overrides and "enable_pnp" not in overrides:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            cli.train(cfg, device="cpu")
+        assert not (tmp_path / "ckpt").exists()
+        return
+    _, _, step = cli.train(cfg, device="cpu")
+    assert step == 2 and CheckpointManager(str(tmp_path / "ckpt")).steps() == [2]
+    with open(tmp_path / "log.pkl", "rb") as f:
+        log = pickle.load(f)
+    loss = "loss_pnp" if "enable_pnp" in overrides else "loss_total"
+    values = [v for _, v in log[loss]]
+    assert len(values) == 2 and all(np.isfinite(values)) and values[0] != 0
 
 
 def test_module_entry_point_raises_without_a_card(prepared, tmp_path):

@@ -6,7 +6,8 @@ only change TPU layouts over an identical parameter tree; here they are
 accepted and change nothing. ``encoder_int8`` is not ported.
 
 Input normalisation (x - 0.45) / 0.225; sigmoid disparity heads at
-``num_scales`` scales, returned fine to coarse. Module names follow the
+``num_scales`` scales (and ``extra_head_scales`` coarser ones for the loss
+base scale), returned fine to coarse. Module names follow the
 reference state_dict: ``encoder.encoder.{conv1,bn1,layer1..4}``,
 ``decoder.upconvs.<i>.<j>.conv.conv``, ``decoder.dispconvs.<s>.conv``.
 """
@@ -91,11 +92,19 @@ class ConvBlock(nn.Module):
 
 
 class DepthDecoder(nn.Module):
-    """Skip decoder with sigmoid disparity heads; ``upconvs[i]`` is scale 4-i."""
+    """Skip decoder with sigmoid disparity heads; ``upconvs[i]`` is scale 4-i.
 
-    def __init__(self, num_scales=3, dtype=torch.float32):
+    ``dispconvs[s]`` is the head of scale s: ``num_scales`` heads, then
+    ``extra_head_scales`` coarser ones (the loss base scale's, the JAX
+    package's ``ReflectConv3x3_x{s}``).
+    """
+
+    def __init__(self, num_scales=3, dtype=torch.float32, extra_head_scales=0):
         super().__init__()
         self.num_scales = num_scales
+        self.num_heads = num_scales + extra_head_scales
+        if self.num_heads > 5:
+            raise ValueError(f"at most 5 disparity heads; got {self.num_heads}")
         ups = []
         cin = _ENC_CH[-1]
         for scale in range(4, -1, -1):
@@ -106,27 +115,32 @@ class DepthDecoder(nn.Module):
             cin = _DEC_CH[scale]
         self.upconvs = nn.ModuleList(ups)
         self.dispconvs = nn.ModuleList(
-            [ReflectConv3x3(_DEC_CH[s], 1, dtype) for s in range(num_scales)]
+            [ReflectConv3x3(_DEC_CH[s], 1, dtype) for s in range(self.num_heads)]
         )
 
-    def forward(self, features):
+    def forward(self, features, min_scale: int = 0):
+        """The disparities of scales ``min_scale`` .. ``num_heads - 1``, fine
+        to coarse; the decoder stops at ``min_scale`` (the finer segment feeds
+        nothing then)."""
         outputs = {}
         x = features[-1]
-        for i, scale in enumerate(range(4, -1, -1)):
+        for i, scale in enumerate(range(4, min_scale - 1, -1)):
             x = upsample2x_bilinear(self.upconvs[i][0](x))
             if scale > 0:
                 x = torch.cat([x, features[scale - 1]], dim=-1)
             x = self.upconvs[i][1](x)
-            if scale < self.num_scales:
+            if scale < self.num_heads:
                 outputs[scale] = torch.sigmoid(self.dispconvs[scale](x))
-        return [outputs[s] for s in range(self.num_scales)]
+        return [outputs[s] for s in range(min_scale, self.num_heads)]
 
 
 class DepthNet(nn.Module):
-    """Encoder + decoder; returns the disparity pyramid [full, 1/2, 1/4, ...]."""
+    """Encoder + decoder; returns the disparity pyramid [full, 1/2, 1/4, ...]
+    (from scale ``min_scale`` when it is given)."""
 
     def __init__(self, num_scales=3, packed=True, packed_encoder=False,
-                 packed_stem=False, encoder_int8=False, dtype=torch.float32):
+                 packed_stem=False, encoder_int8=False, dtype=torch.float32,
+                 extra_head_scales=0):
         super().__init__()
         del packed, packed_encoder, packed_stem  # TPU layouts, same math
         if encoder_int8:
@@ -134,9 +148,9 @@ class DepthNet(nn.Module):
                 "encoder_int8 is not ported (ROADMAP.md queue 1, 'The rest')"
             )
         self.encoder = ResnetEncoder(dtype)
-        self.decoder = DepthDecoder(num_scales, dtype)
+        self.decoder = DepthDecoder(num_scales, dtype, extra_head_scales)
 
-    def forward(self, img):
+    def forward(self, img, min_scale: int = 0):
         if min(img.shape[1], img.shape[2]) < 64:
             raise ValueError(f"DepthNet needs input >= 64 px per side; got {tuple(img.shape)}")
-        return self.decoder(self.encoder(img))
+        return self.decoder(self.encoder(img), min_scale)

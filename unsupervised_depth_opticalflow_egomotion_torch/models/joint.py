@@ -14,10 +14,13 @@ cannot drift from the configuration the way the JAX module's defaults do.
 BatchNorm runs in batch-statistics mode when the module is in ``train()``
 mode and updates its running statistics in place.
 
-Not ported yet (they raise ``NotImplementedError``): the sampled geometric
-losses (``enable_triangle``, ``enable_pnp``, ``enable_eight_point``),
-``enable_depth_consis`` in geom mode and ``loss_base_scale > 0``
-(ROADMAP.md, queue 1).
+Every option of the JAX objective is ported: the depth consistency in depth
+and geom modes, the loss base scale (the whole loss pyramid ``ls`` octaves
+below the input, on the depth net's extra coarse heads) and the sampled
+geometric losses of geom mode (triangulation, PnP and RANSAC-F eight-point
+consistency). One sampled match set feeds all three, and the caller draws
+its indices (``draw_samples``), so the card and the CPU can be given the same
+draws. ``encoder_int8`` is not ported (``models/depth_net.py``).
 
 NOTE (preserved reference behaviour): the sigmoid disp pyramid is used
 directly as "depth" in the reconstruction.
@@ -33,11 +36,15 @@ import torch.nn as nn
 from ..config import Config
 from ..ops import losses as L
 from ..ops import masks as M
-from ..ops.geometry import disp2depth
-from ..ops.interp import image_pyramid
+from ..ops.geometry import disp2depth, fundamental_from_pose, projection_matrices
+from ..ops.interp import image_pyramid, resize_area
 from ..ops.inverse_warp_multi import multiscale_recon_dynamic, multiscale_reconstruction
+from ..ops.pnp import batched_pnp
+from ..ops.ransac import batched_ransac_fundamental
+from ..ops.sampling import draw_indices, sample_matches, top_ratio_count
 from ..ops.splat import occlusion_mask_from_flow
 from ..ops.ssim import ssim_route
+from ..ops.triangulation import midpoint_triangulate, register_depth, reproject
 from ..ops.warp import WarpRoute, warp_flow
 from .depth_net import DepthNet
 from .feature_pyramid import FeaturePyramid
@@ -86,6 +93,21 @@ def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def needs_samples(cfg: Config) -> bool:
+    """Whether the geom objective samples matches (a geometric loss is on)."""
+    return cfg.mode == "geom" and (
+        cfg.enable_triangle or cfg.enable_pnp or cfg.enable_eight_point
+    )
+
+
+def _loss_frames(frames, ls: int):
+    """The frames at the loss base scale (area-resized ``ls`` octaves down)."""
+    if not ls:
+        return frames
+    h, w = frames[0].shape[1], frames[0].shape[2]
+    return tuple(resize_area(f, (h >> ls, w >> ls)) for f in frames)
+
+
 class JointModel(nn.Module):
     # JAX JointModel fixes these two (joint.py:96-97); Config has no field
     rigid_thres = 0.5
@@ -98,25 +120,18 @@ class JointModel(nn.Module):
         if cfg.flow_occ_impl not in (*_OCC_TAPS, "diff_weights"):
             raise ValueError(f"unknown flow_occ_impl {cfg.flow_occ_impl!r}")
         ssim_route(cfg.ssim_impl, "cpu")  # validates the name
-        unported = [
-            name
-            for name in ("enable_triangle", "enable_pnp", "enable_eight_point")
-            if getattr(cfg, name)
-        ]
-        if cfg.enable_depth_consis and cfg.mode == "geom":
-            unported.append("enable_depth_consis in geom mode")
-        if cfg.loss_base_scale:
-            unported.append("loss_base_scale")
-        if unported:
-            raise NotImplementedError(
-                f"not ported yet: {', '.join(unported)} (ROADMAP.md, queue 1)"
+        ls = cfg.loss_base_scale
+        if ls < 0 or (ls and ls + cfg.num_scales > 4):
+            raise ValueError(
+                "loss_base_scale + num_scales must be <= 4 (the PWC decoder "
+                f"emits 4 flow scales); got {ls} + {cfg.num_scales}"
             )
         self.cfg = cfg
         self.dtype = dtype = compute_dtype(cfg)
         self.warp_route = WarpRoute(cfg.warp_impl, cfg.warp_bf16)
         self.depth_net = DepthNet(
             cfg.num_scales, cfg.packed_convs, cfg.packed_encoder, cfg.packed_stem,
-            cfg.encoder_int8, dtype,
+            cfg.encoder_int8, dtype, extra_head_scales=ls,
         )
         self.pose_net = PoseNet(cfg.img_hw, cfg.num_input_frames, dtype)
         self.fpyramid = FeaturePyramid(cfg.packed_convs, dtype)
@@ -186,13 +201,16 @@ class JointModel(nn.Module):
         BatchNorm module runs. ``cfg.flow_occ_impl`` picks the occlusion
         model: the forward-splat masks ("splat" = the splat kernel,
         "splat_xla", "splat_nn", "splat_nn_half"), or the reference's soft
-        "diff_weights".
+        "diff_weights". With ``loss_base_scale`` ls the flows of scales
+        ls..3 are scored against the frames area-resized ls octaves down, and
+        no warp samples the uint8 frames.
         """
         del K_ms, K_inv_ms
         cfg = self.cfg
         ns = cfg.num_scales
+        ls = cfg.loss_base_scale
         ssim_impl = cfg.ssim_impl
-        raw = split_stack_raw(images)
+        raw = split_stack_raw(images) if ls == 0 else None
         img_l, img, img_r = split_stack(images, self.dtype)
         hw = (img.shape[1], img.shape[2])
         b = img.shape[0]
@@ -202,11 +220,12 @@ class JointModel(nn.Module):
         feat_l, feat, feat_r = zip(*(_split3(f) for f in feats_all))
         feat_cc = tuple(torch.cat([c, c], 0) for c in feat)
         feat_lr = tuple(torch.cat(p, 0) for p in zip(feat_l, feat_r))
-        flows_both = self.pwc_model(feat_cc, feat_lr, hw)
+        flows_both = self.pwc_model(feat_cc, feat_lr, hw)[ls:]
         flows_bwd = [f[:b] for f in flows_both]
         flows_fwd = [f[b:] for f in flows_both]
 
         # the flow objective uses area pyramids
+        img_l, img, img_r = _loss_frames((img_l, img, img_r), ls)
         n = len(flows_fwd)
         img_l_pyr = image_pyramid(img_l, n, mode="area")
         img_pyr = image_pyramid(img, n, mode="area")
@@ -249,19 +268,23 @@ class JointModel(nn.Module):
 
     def forward_depth(self, images, K_ms, K_inv_ms):
         """Depth loss pack (dict of [B] vectors): pixel and smoothness, and
-        SSIM / depth consistency when their ``enable_*`` flags are set."""
+        SSIM / depth consistency when their ``enable_*`` flags are set. With
+        ``loss_base_scale`` ls: the disparities of scales ls..ls+ns-1, K at
+        scale ls and the frames area-resized ls octaves down."""
         del K_inv_ms
         cfg = self.cfg
         ns = cfg.num_scales
-        K = K_ms[:, 0]
+        ls = cfg.loss_base_scale
+        K = K_ms[:, ls]
         img_l, img, img_r = split_stack(images, self.dtype)
 
         # depth on all three frames in one 3B pass (BN stats over the triplet)
-        disp_all = self.depth_net(torch.cat([img_l, img, img_r], 0))[:ns]
+        disp_all = self.depth_net(torch.cat([img_l, img, img_r], 0), ls)
         disp_l, disp, disp_r = (list(t) for t in zip(*(_split3(d) for d in disp_all)))
         poses = self.pose_net(torch.cat([img_l, img, img_r], -1))
         pose_fwd, pose_bwd = poses[:, 1], poses[:, 0]
 
+        img_l, img, img_r = _loss_frames((img_l, img, img_r), ls)
         img_pyr = image_pyramid(img, ns)
         img_l_pyr = image_pyramid(img_l, ns)
         img_r_pyr = image_pyramid(img_r, ns)
@@ -298,23 +321,56 @@ class JointModel(nn.Module):
             ),
         }
 
-    def forward_geom(self, images, K_ms, K_inv_ms, with_masks: bool = False):
+    def draw_samples(self, generator: torch.Generator, batch_size: int, hw=None):
+        """The index draws of one geom step's sampled losses, int64 on the
+        CPU from ``generator`` (None when no geometric loss is on):
+        "bwd" / "fwd" [B, geometric_num] pick the kept matches of each
+        direction (in score order, uniform with replacement), and with the
+        eight-point loss "8_bwd" / "8_fwd" [B, ransac_iters, 8] pick each
+        RANSAC hypothesis's minimal sample. ``hw`` is the input's
+        [H, W] (default ``img_hw``)."""
+        cfg = self.cfg
+        if not needs_samples(cfg):
+            return None
+        h, w = cfg.img_hw if hw is None else hw
+        ls = cfg.loss_base_scale
+        kept = top_ratio_count((h >> ls) * (w >> ls), cfg.geometric_ratio)
+        num = cfg.geometric_num
+        out = {d: draw_indices(generator, (batch_size, num), kept) for d in ("bwd", "fwd")}
+        if cfg.enable_eight_point:
+            for d in ("bwd", "fwd"):
+                out["8_" + d] = draw_indices(generator, (batch_size, cfg.ransac_iters, 8), num)
+        return out
+
+    def forward_geom(self, images, K_ms, K_inv_ms, with_masks: bool = False, draws=None):
         """Geom loss pack (dict of [B] vectors) and, ``with_masks``, the masks.
 
         ``images`` is the [B,3H,W,3] frame stack (uint8 or float), ``K_ms`` /
-        ``K_inv_ms`` the [B,S,3,3] intrinsics pyramids.
+        ``K_inv_ms`` the [B,S,3,3] intrinsics pyramids. ``draws`` are the
+        index tensors of ``draw_samples`` on the images' device; they are
+        required when a geometric loss is on. With ``loss_base_scale`` ls
+        every loss-side quantity lives ls octaves down (K at scale ls, the
+        disparities and flows of scales ls..ls+ns-1, area-resized frames).
         """
         cfg = self.cfg
         ns = cfg.num_scales
+        ls = cfg.loss_base_scale
         ssim_impl = cfg.ssim_impl
-        K, K_inv = K_ms[:, 0], K_inv_ms[:, 0]
-        raw = split_stack_raw(images)
+        if needs_samples(cfg) and draws is None:
+            # a fixed fallback draw would repeat the sampled set every step
+            # and silently bias the geometric losses
+            raise ValueError(
+                "forward_geom requires `draws` (JointModel.draw_samples) when "
+                "triangle/pnp/eight_point losses are enabled"
+            )
+        K, K_inv = K_ms[:, ls], K_inv_ms[:, ls]
+        raw = split_stack_raw(images) if ls == 0 else None
         img_l, img, img_r = split_stack(images, self.dtype)
         hw = (img.shape[1], img.shape[2])
         b = img.shape[0]
 
         # depth on all three frames in one 3B pass (BN stats over the triplet)
-        disp_all = self.depth_net(torch.cat([img_l, img, img_r], 0))[:ns]
+        disp_all = self.depth_net(torch.cat([img_l, img, img_r], 0), ls)
         disp_l, disp, disp_r = (list(t) for t in zip(*(_split3(d) for d in disp_all)))
 
         poses = self.pose_net(torch.cat([img_l, img, img_r], -1))
@@ -325,10 +381,11 @@ class JointModel(nn.Module):
         feat_l, feat, feat_r = zip(*(_split3(f) for f in feats_all))
         feat_cc = tuple(torch.cat([c, c], 0) for c in feat)
         feat_lr = tuple(torch.cat(p, 0) for p in zip(feat_l, feat_r))
-        flows_both = self.pwc_model(feat_cc, feat_lr, hw)[:ns]
+        flows_both = self.pwc_model(feat_cc, feat_lr, hw)[ls : ls + ns]
         flows_bwd = [f[:b] for f in flows_both]
         flows_fwd = [f[b:] for f in flows_both]
 
+        img_l, img, img_r = _loss_frames((img_l, img, img_r), ls)
         img_pyr = image_pyramid(img, ns)
         img_l_pyr = image_pyramid(img_l, ns)
         img_r_pyr = image_pyramid(img_r, ns)
@@ -345,9 +402,11 @@ class JointModel(nn.Module):
         flows2 = [cat2(fb, ff) for fb, ff in zip(flows_bwd, flows_fwd)]
 
         # depth/pose reconstruction + dynamic masks from one projection/scale
-        rec2, valid_to2, _, fd2, dyn2, _ = multiscale_recon_dynamic(
-            cat2(img_l, img_r), K2, [cat2(d, d) for d in disp], pose2, flows2,
-            cfg.flow_consist_alpha, cfg.flow_consist_beta,
+        consis = cfg.enable_depth_consis
+        rec2, valid_to2, pdepth2, cdepth2, fd2, dyn2, fds2 = multiscale_recon_dynamic(
+            cat2(img_l, img_r), K2, [cat2(d, d) for d in disp],
+            [cat2(dl, dr) for dl, dr in zip(disp_l, disp_r)], pose2, flows2,
+            cfg.flow_consist_alpha, cfg.flow_consist_beta, sample_ref_depth=consis,
             ref_img_u8=cat2(raw[0], raw[2]) if raw is not None else None,
             route=self.warp_route,
         )
@@ -393,7 +452,14 @@ class JointModel(nn.Module):
             "loss_depth_smooth": L.disp_smooth_loss(img, disp, norm)
             + L.disp_smooth_loss(img_l, disp_l, norm)
             + L.disp_smooth_loss(img_r, disp_r, norm),
-            "loss_depth_consis": zero,
+            "loss_depth_consis": (
+                L.depth_consis_loss([x[:b] for x in pdepth2], [x[:b] for x in cdepth2],
+                                    bwd_mask_tex)
+                + L.depth_consis_loss([x[b:] for x in pdepth2], [x[b:] for x in cdepth2],
+                                      fwd_mask_tex)
+                if consis
+                else zero
+            ),
             "loss_flow_pixel": L.photometric_loss(img_pyr, warped_from_l, bwd_vo_rigid)
             + L.photometric_loss(img_pyr, warped_from_r, fwd_vo_rigid)
             + w_dyn * L.photometric_loss(img_pyr, warped_from_l, bwd_vo_dyna)
@@ -412,6 +478,30 @@ class JointModel(nn.Module):
             "loss_eight_point": zero,
         }
 
+        if needs_samples(cfg):
+            # one sampled set per direction (2B: bwd, fwd) feeds all three
+            # geometric losses: the top geometric_ratio of the top-scale
+            # matches by flow-consistency score, then the drawn indices
+            disp0 = cat2(disp[0], disp[0])
+            m2, d2 = sample_matches(
+                torch.cat([draws["bwd"], draws["fwd"]]), flows2[0], disp0, fds2[0],
+                cfg.geometric_ratio,
+            )
+            K_inv2 = cat2(K_inv, K_inv)
+            geo = {}
+            if cfg.enable_triangle:
+                geo["loss_triangle"] = self._triangle_loss(
+                    m2, pose2, K2, K_inv2, disp0, cat2(disp_l[0], disp_r[0])
+                )
+            if cfg.enable_pnp:
+                geo["loss_pnp"] = self._pnp_loss(m2, d2, pose2, K2, K_inv2)
+            if cfg.enable_eight_point:
+                geo["loss_eight_point"] = self._eight_point_loss(
+                    torch.cat([draws["8_bwd"], draws["8_fwd"]]), m2, pose2, K_inv2
+                )
+            for k, v in geo.items():
+                loss_pack[k] = v[:b] + v[b:]
+
         aux = {}
         if with_masks:
             rigid_fwd, inlier_fwd, _ = M.rigid_masks(
@@ -429,3 +519,50 @@ class JointModel(nn.Module):
                 "pred_flow_fwd": flows_fwd[0],
             }
         return loss_pack, aux
+
+    def _pnp_loss(self, match, depth_sampled, pose, K, K_inv):
+        """PnP-consistency pose loss [B] (the reference's model_geometry.py:
+        473-530): the Gauss-Newton PnP pose of the sampled matches, whose 3D
+        points are the back-projected pixels scaled by the sampled
+        DISPARITY (the reference's quirk, kept), against the predicted pose.
+        The solver's inputs are detached, as the reference's OpenCV call's
+        are, so gradients pull the pose net toward the estimate."""
+        match = match.float()
+        pix = torch.cat([match[..., :2], torch.ones_like(match[..., :1])], dim=-1)
+        pts3d = (pix @ K_inv.float().transpose(1, 2)) * depth_sampled.float()
+        # [B,6] = [tvec | rvec], the pose vector's layout
+        pred = batched_pnp(pts3d.detach(), match[..., 2:].detach(), K.float())
+        pose = pose.float()
+        pos_l = (pred[:, :3] - pose[:, :3]).abs()
+        rot_l = (pred[:, 3:] - pose[:, 3:]).abs()
+        return (pos_l + self.cfg.pose_beta * rot_l).mean(dim=1)
+
+    def _eight_point_loss(self, idx8, match, pose, K_inv):
+        """Fundamental-matrix consistency loss [B] (model_geometry.py:548-566,
+        with the JAX package's fixes): F from the detached sampled matches by
+        batched RANSAC eight-point, against F(pose) = K^-T [t]x R K^-1, both
+        unit-Frobenius, the estimate's sign aligned to the prediction,
+        smooth-L1."""
+        match = match.detach().float()
+        F_hat = batched_ransac_fundamental(idx8, match[..., :2], match[..., 2:], thres=0.1)[0]
+        F_pred = fundamental_from_pose(pose.float(), K_inv.float())
+        F_pred = F_pred / (torch.linalg.matrix_norm(F_pred)[:, None, None] + 1e-12)
+        sign = torch.sign((F_hat * F_pred.detach()).sum((1, 2), keepdim=True))
+        sign = torch.where(sign == 0, torch.ones_like(sign), sign)
+        diff = F_pred - sign * F_hat
+        ad = diff.abs()
+        huber = torch.where(ad < 1.0, 0.5 * diff * diff, ad - 0.5)
+        return huber.mean(dim=(1, 2))
+
+    def _triangle_loss(self, match, pose, K, K_inv, disp1, disp2):
+        """Triangulated-depth registration loss [B] (model_geometry.py:
+        670-683): midpoint-triangulate the matches under the predicted pose,
+        register each frame's disparity map on the triangulated depths and
+        score the registered samples."""
+        P1, P2 = projection_matrices(pose.float(), K.float())
+        points = midpoint_triangulate(match, K_inv.float(), P1, P2)
+        c1, d1 = reproject(P1, points)
+        c2, d2 = reproject(P2, points)
+        _, inter1 = register_depth(disp1, c1, d1)
+        _, inter2 = register_depth(disp2, c2, d2)
+        return L.triangulation_loss(d1, inter1) + L.triangulation_loss(d2, inter2)

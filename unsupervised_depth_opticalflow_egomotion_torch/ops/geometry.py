@@ -40,9 +40,29 @@ def euler2mat(angle: torch.Tensor) -> torch.Tensor:
     return xmat @ ymat @ zmat
 
 
-def pose_vec2mat(vec: torch.Tensor) -> torch.Tensor:
-    """6-DoF pose [B,6] ([t | r], Euler) -> transform [B,3,4]."""
-    return torch.cat([euler2mat(vec[:, 3:]), vec[:, :3, None]], dim=2)
+def quat2mat(quat: torch.Tensor) -> torch.Tensor:
+    """Quaternion tail [B,3] (w fixed to 1 before normalization) -> [B,3,3]."""
+    q = torch.cat([torch.ones_like(quat[:, :1]), quat], dim=1)
+    q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    w, x, y, z = q.unbind(1)
+    w2, x2, y2, z2 = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    return torch.stack(
+        [
+            w2 + x2 - y2 - z2, 2 * xy - 2 * wz, 2 * wy + 2 * xz,
+            2 * wz + 2 * xy, w2 - x2 + y2 - z2, 2 * yz - 2 * wx,
+            2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2,
+        ],
+        dim=1,
+    ).reshape(-1, 3, 3)
+
+
+def pose_vec2mat(vec: torch.Tensor, rotation_mode: str = "euler") -> torch.Tensor:
+    """6-DoF pose [B,6] ([t | r], Euler angles or a quaternion tail) ->
+    transform [B,3,4]."""
+    rot = euler2mat(vec[:, 3:]) if rotation_mode == "euler" else quat2mat(vec[:, 3:])
+    return torch.cat([rot, vec[:, :3, None]], dim=2)
 
 
 def disp2depth(disp: torch.Tensor, min_depth: float = 0.1, max_depth: float = 100.0) -> torch.Tensor:
@@ -183,6 +203,11 @@ def inverse_warp2(
     sampled = grid_sample(torch.cat([img, ref_depth.to(img.dtype)], dim=-1), coords)
     projected_depth = torch.clamp(sampled[..., 3:], min=1e-3)
     return sampled[..., :3], valid, projected_depth, computed_depth
+
+
+def calculate_rigid_flow(depth, pose, intrinsics) -> torch.Tensor:
+    """Rigid flow [B,H,W,2] induced by depth [B,H,W,1] and pose [B,6]."""
+    return rigid_projection(depth, pose, intrinsics)[3]
 
 
 def skew_symmetric(t: torch.Tensor) -> torch.Tensor:

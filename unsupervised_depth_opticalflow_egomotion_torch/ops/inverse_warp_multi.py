@@ -18,8 +18,8 @@ def _scale_K(intrinsics, downscale):
 
 
 def multiscale_recon_dynamic(
-    ref_img, intrinsics, depths, pose, flows, alpha: float, beta: float,
-    ref_img_u8=None, route: WarpRoute = DEFAULT_ROUTE,
+    ref_img, intrinsics, depths, depths_ref, pose, flows, alpha: float, beta: float,
+    sample_ref_depth: bool = False, ref_img_u8=None, route: WarpRoute = DEFAULT_ROUTE,
 ):
     """Reconstruction + dynamic-region masks from ONE projection per scale.
 
@@ -28,14 +28,19 @@ def multiscale_recon_dynamic(
     source is a camera frame), and compare the rigid flow with the predicted
     flow: bound = alpha*(|f|^2+|r|^2)+beta, mask = |f-r|^2 < bound and
     score = 1/(1e-4+|f-r|), both detached. ``ref_img_u8`` is the raw uint8
-    full-resolution source, gathered at scale 0 with 1/255 folded in.
+    full-resolution source, gathered at scale 0 with 1/255 folded in. With
+    ``sample_ref_depth`` the source depth ``depths_ref`` is sampled at the
+    same coords (>= 1e-3): a one-channel network output, which needs a
+    gradient to the source, so the plain sampler takes it while the frame
+    stays on the kernel.
 
-    Returns (recs, valids, cdepths, flow_diffs, dyn_masks, scores).
+    Returns (recs, valids, pdepths, cdepths, flow_diffs, dyn_masks, scores);
+    ``pdepths`` holds None per scale without ``sample_ref_depth``.
     """
     h0 = ref_img.shape[1]
-    recs, valids, cdepths = [], [], []
+    recs, valids, pdepths, cdepths = [], [], [], []
     flow_diffs, dyn_masks, scores = [], [], []
-    for depth, flow in zip(depths, flows):
+    for depth, depth_ref, flow in zip(depths, depths_ref, flows):
         h, w = depth.shape[1], depth.shape[2]
         ref_scaled = resize_area(ref_img, (h, w))
         coords, valid, cdepth, rigid = rigid_projection(
@@ -45,6 +50,11 @@ def multiscale_recon_dynamic(
             recs.append(grid_sample(ref_img_u8, coords, out_dtype=ref_img.dtype, route=route))
         else:
             recs.append(grid_sample(ref_scaled, coords, src_is_data=True, route=route))
+        pdepths.append(
+            torch.clamp(grid_sample(depth_ref.to(ref_scaled.dtype), coords), min=1e-3)
+            if sample_ref_depth
+            else None
+        )
         valids.append(valid.to(ref_scaled.dtype))
         cdepths.append(cdepth)
 
@@ -54,7 +64,7 @@ def multiscale_recon_dynamic(
         flow_diffs.append(diff)
         dyn_masks.append((dn**2 < bound).to(flow.dtype).detach())
         scores.append((1.0 / (1e-4 + dn)).detach())
-    return recs, valids, cdepths, flow_diffs, dyn_masks, scores
+    return recs, valids, pdepths, cdepths, flow_diffs, dyn_masks, scores
 
 
 def multiscale_reconstruction(

@@ -137,3 +137,9 @@ def epipolar_loss(dist_map, rigid_mask) -> torch.Tensor:
     mean, then overwrites it with the unmasked one; reproduced)."""
     del rigid_mask
     return _bmean(dist_map)
+
+
+def triangulation_loss(tri_depth, pred_tri_depth) -> torch.Tensor:
+    """(1 - pred/tri)^2 over sampled points [B,N,1], mean per item in f32."""
+    loss = (1.0 - pred_tri_depth / (tri_depth + 1e-12)) ** 2
+    return loss.float().mean(dim=(1, 2))

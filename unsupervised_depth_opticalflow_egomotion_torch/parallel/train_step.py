@@ -16,6 +16,16 @@ modes (``cfg.mode``: flow | depth | geom), with the same four entry points:
   ``(images, K_ms, K_inv_ms)``; returns the metrics (the mean of every loss
   in the pack and the weighted ``loss_total``).
 
+The geom objective's sampled losses (``enable_triangle`` / ``enable_pnp`` /
+``enable_eight_point``) draw random indices every step. The JAX CLI splits
+``PRNGKey(cfg.seed + 1)`` once a step (train.py:226, 253); jax.random's bits
+cannot be reproduced here, so the port draws step ``s``'s indices from a CPU
+``torch.Generator`` seeded from ``(cfg.seed, s)`` (``step_generator``) and
+copies them to the card without blocking (about B x 6000 + B x 800
+integers a direction). The card and the CPU get the same draws for the
+same step, and a resumed run replays them exactly with no saved generator
+state.
+
 The model and the optimizer state are updated in place; BatchNorm running
 statistics update during the forward, as flax's mutable ``batch_stats``.
 A mode trains the networks it runs: flow mode the feature pyramid and the
@@ -30,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from ..config import Config, loss_weights
-from ..models.joint import JointModel
+from ..models.joint import JointModel, needs_samples
 from ..models.layers import init_weights
 from ..utils.device import resolve_device
 
@@ -86,23 +96,48 @@ def clip_by_global_norm(params, max_norm: float) -> None:
         g.mul_(scale.to(g.dtype))
 
 
-def _forward(model: JointModel, cfg: Config, batch):
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of step ``step``'s draws, seeded from (seed, step)."""
+    return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
+
+def step_draws(model: JointModel, step: int, batch) -> dict | None:
+    """Step ``step``'s index draws (``JointModel.draw_samples``) on the
+    batch's device, copied from pinned memory without blocking; None when
+    the objective samples nothing."""
+    images = batch[0]
+    h = images.shape[1] // 3
+    draws = model.draw_samples(
+        step_generator(model.cfg.seed, step), images.shape[0], (h, images.shape[2])
+    )
+    if draws is None or images.device.type != "cuda":
+        return draws
+    return {k: v.pin_memory().to(images.device, non_blocking=True) for k, v in draws.items()}
+
+
+def _forward(model: JointModel, cfg: Config, batch, draws=None):
     """The loss pack (dict of [B] vectors) of ``cfg.mode`` on ``batch``."""
     if cfg.mode == "flow":
         return model.forward_flow(*batch)
     if cfg.mode == "depth":
         return model.forward_depth(*batch)
-    return model.forward_geom(*batch)[0]
+    return model.forward_geom(*batch, draws=draws)[0]
 
 
 def make_train_step(model: JointModel, cfg: Config, optimizer: torch.optim.Optimizer):
-    """One training step of ``cfg.mode``: ``step(batch) -> metrics`` (device
-    scalars)."""
+    """One training step of ``cfg.mode``: ``step(batch, step=None) ->
+    metrics`` (device scalars). ``step`` (the number of steps taken before
+    this one) seeds the draws of the sampled geom losses, and must be given
+    when they are on."""
     weights = loss_weights(cfg)
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    sampled = needs_samples(cfg)
 
-    def train_step(batch):
-        loss_pack = _forward(model, cfg, batch)
+    def train_step(batch, step=None):
+        if sampled and step is None:
+            raise ValueError("the sampled geom losses need the step number to draw from")
+        draws = step_draws(model, step, batch) if sampled else None
+        loss_pack = _forward(model, cfg, batch, draws)
         total = torch.zeros((), device=batch[0].device)
         metrics = {}
         for k, v in loss_pack.items():

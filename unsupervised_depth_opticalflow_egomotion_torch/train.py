@@ -47,6 +47,7 @@ from .config import Config, load_config
 from .data import KittiOdoPrep, KittiPreparedDataset, KittiRawPrep, NyuPrep, make_loader
 from .evaluation import load_gt_flow_kitti, load_gt_mask
 from .parallel import build_model, init_state, make_train_step, to_device_batch
+from .parallel.train_step import step_draws
 from .utils import CheckpointManager, MetricLogger, graft_params, opt_layout_tag, resolve_device
 from .visualize import dump_mask_pack
 
@@ -162,8 +163,10 @@ def dump_masks(eval_model, model, batch, batch_np, out_dir: str, step: int, logg
     f32) that takes the model's parameters and BatchNorm statistics: the
     model, its statistics and the optimizer are left as they were."""
     eval_model.load_state_dict(model.state_dict())
+    # a fixed draw: the masks do not read the sampled losses
+    draws = step_draws(eval_model, 0, tuple(x[:1] for x in batch))
     with torch.no_grad():
-        _, aux = eval_model.forward_geom(*(x[:1] for x in batch), with_masks=True)
+        _, aux = eval_model.forward_geom(*(x[:1] for x in batch), with_masks=True, draws=draws)
     aux = {k: v.float().cpu().numpy() for k, v in aux.items()}
     h = batch_np[0].shape[1] // 3
     center = batch_np[0][0, h : 2 * h]
@@ -250,7 +253,7 @@ def train(cfg: Config, device=None):
             run_interleaved_eval(cfg, infer_fns, logger, step, eval_ctx)
 
         batch = to_device_batch(batch_np, dev)
-        metrics = step_fn(batch)
+        metrics = step_fn(batch, step)
         step += 1
 
         if step % cfg.log_interval == 0:
@@ -295,8 +298,8 @@ def main(argv=None):
                         help="flow mode: switch flow_occ_impl -> splat at this "
                              "step (occlusion schedule; 0 = never)")
     parser.add_argument("--loss_base_scale", type=int, default=None,
-                        help="half-resolution loss dial (not ported: raises "
-                             "when set)")
+                        help="half-resolution loss dial: the loss pyramid this "
+                             "many octaves below the input")
     parser.add_argument("--coordinator_address", default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)

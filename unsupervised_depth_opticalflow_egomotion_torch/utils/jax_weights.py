@@ -13,6 +13,8 @@ read in the other direction. Layouts:
 ``load_jax_variables`` takes the variables as nested dicts (or flax
 FrozenDicts) of numpy arrays, and loads them strictly: every parameter and
 buffer of the model must be set and every leaf of the tree must be used.
+``jax_variables`` goes the other way. A model with the loss base scale's
+extra disparity heads maps them to the JAX tree's ``ReflectConv3x3_x{s}``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 
-def name_table(num_scales: int = 3) -> Iterator[tuple[str, str, str]]:
+def name_table(num_scales: int = 3, extra_head_scales: int = 0) -> Iterator[tuple[str, str, str]]:
     """(kind, torch module name, flax path) for every mapped layer.
 
     ``kind`` is "conv", "linear" or "bn". Convs with a bias in the flax tree
@@ -85,6 +87,9 @@ def name_table(num_scales: int = 3) -> Iterator[tuple[str, str, str]]:
             f"depth_net.decoder.dispconvs.{num_scales - 1 - k}.conv",
             f"{dec}/ReflectConv3x3_{k}/Conv_0",
         )
+    # the loss base scale's coarser heads keep their scale in the flax name
+    for s in range(num_scales, num_scales + extra_head_scales):
+        yield "conv", f"depth_net.decoder.dispconvs.{s}.conv", f"{dec}/ReflectConv3x3_x{s}/Conv_0"
 
 
 def _node(tree: Mapping, path: str, used: set, prefix: str):
@@ -106,7 +111,8 @@ def _leaf_paths(tree: Mapping, prefix: str) -> set:
     return out
 
 
-def jax_state_dict(params: Mapping, batch_stats: Mapping, num_scales: int = 3) -> dict:
+def jax_state_dict(params: Mapping, batch_stats: Mapping, num_scales: int = 3,
+                   extra_head_scales: int = 0) -> dict:
     """The port's state_dict (name -> f32 tensor) from the JAX variables."""
     used: set = set()
     sd = {}
@@ -115,7 +121,7 @@ def jax_state_dict(params: Mapping, batch_stats: Mapping, num_scales: int = 3) -
         a = np.asarray(a, np.float32)
         return torch.from_numpy(np.array(a if perm is None else a.transpose(perm)))
 
-    for kind, name, path in name_table(num_scales):
+    for kind, name, path in name_table(num_scales, extra_head_scales):
         node = _node(params, path, used, "params")
         if kind == "bn":
             sd[f"{name}.weight"] = t(node["scale"])
@@ -133,8 +139,39 @@ def jax_state_dict(params: Mapping, batch_stats: Mapping, num_scales: int = 3) -
     return sd
 
 
+def _heads(model: torch.nn.Module) -> tuple[int, int]:
+    dec = model.depth_net.decoder
+    return dec.num_scales, len(dec.dispconvs) - dec.num_scales
+
+
 def load_jax_variables(model: torch.nn.Module, params: Mapping, batch_stats: Mapping) -> None:
     """Load the JAX package's ``params`` / ``batch_stats`` into ``model`` strictly."""
-    num_scales = len(model.depth_net.decoder.dispconvs)
-    sd = jax_state_dict(params, batch_stats, num_scales)
+    sd = jax_state_dict(params, batch_stats, *_heads(model))
     model.load_state_dict(sd, strict=True)
+
+
+def jax_variables(model: torch.nn.Module) -> tuple[dict, dict]:
+    """The other way: (params, batch_stats) as the JAX package's nested dicts
+    of f32 numpy arrays, from ``model``'s state_dict."""
+    sd = model.state_dict()
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, leaf, value):
+        node = tree
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().float().cpu().numpy()
+
+    for kind, name, path in name_table(*_heads(model)):
+        if kind == "bn":
+            put(params, path, "scale", sd[f"{name}.weight"])
+            put(params, path, "bias", sd[f"{name}.bias"])
+            put(stats, path, "mean", sd[f"{name}.running_mean"])
+            put(stats, path, "var", sd[f"{name}.running_var"])
+            continue
+        w = sd[f"{name}.weight"]
+        put(params, path, "kernel", w.permute(2, 3, 1, 0) if kind == "conv" else w.t())
+        if f"{name}.bias" in sd:
+            put(params, path, "bias", sd[f"{name}.bias"])
+    return params, stats

@@ -26,9 +26,9 @@ def _colormap(arr: np.ndarray, cmap: str = "magma") -> np.ndarray:
     a = np.asarray(arr, np.float64)
     a = (a - a.min()) / (a.max() - a.min() + 1e-12)
     try:
-        import matplotlib.cm as cm
+        import matplotlib
 
-        rgba = cm.get_cmap(cmap)(a)
+        rgba = matplotlib.colormaps[cmap](a)
         return (rgba[..., :3] * 255).astype(np.uint8)
     except Exception:
         g = (a * 255).astype(np.uint8)
