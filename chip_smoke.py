@@ -27,8 +27,10 @@ uses card 0). Phases, in order; any failure exits non-zero:
    a train step launches a kernel with a signature that this phase did not
    hold against the plain version. The f32 shapes of the CLI's geom mask
    dump (phase 6) are held here too, and so are the half-size bf16 warps
-   and SSIM planes and the flow-mode splats of loss_base_scale=1, and the
-   cost volume of phase 8's one-pair f32 flow inference.
+   and SSIM planes and the flow-mode splats of loss_base_scale=1, the
+   cost volume of phase 8's one-pair f32 flow inference, and phase 9's f32
+   launches (the cost volume at B = 8, eval_flow's, and the SSIM map and
+   its backward at [8,256,832,3]).
 4. parity: one train step with the kernels on the card against the plain
    versions on the CPU, at 64x128 b2 in f32 (TF32 off), from the same seed
    and the same draws: the geom step under the default Config, a flow step
@@ -87,11 +89,29 @@ uses card 0). Phases, in order; any failure exits non-zero:
    checkpoints and the launch signatures of the in-process stages. Runs
    before phase 5's profiles.
 
+9. two_view: the legacy two-view and flow-to-pose families, from phase 6's
+   geom checkpoint and on phase 7's trees, in the same temporary directory:
+   the eval CLI's ``--mode two_view`` for kitti_flow_2015 and
+   kitti_flow_2012 (subprocesses; each must exit 0, print its metrics and
+   give the EPEs of phase 7's geom-mode task within 1e-5 relative, plus
+   half the printed last digit: the same PWC forward); meanwhile
+   ``TriangulationPoseModel`` at b8 256x832 f32 (ransac_points 6000, 100
+   iterations, the same draws) on the card against the CPU: flow and
+   disparity within EVAL_TOL, and the geometric half on the exact rigid
+   flow of a known depth and pose within 1e-2 of R and 0.999 of the
+   translation's direction on both devices; ``FlowPoseModel``'s
+   forward_train card against CPU at 64x128 b2 f32 (losses to 1e-3
+   relative + 1e-7, gradients stated); and its training at b8 256x832 f32
+   with Adam (finite losses, the depth net and FlowPoseNet move, the flow
+   nets bit-equal, exact launch counts, a frames/s line). Runs after phase
+   8 and before phase 5's profiles.
+
 The last three lines of standard output are the card's name and power
 limit, one JSON object with a row per kernel (its launches, times, device
 times and bound on the first of the paths geom, flow, depth, geom_regather,
-eval_flow, geom_all, geom_ls1, flow_ls1, depth_ls1 that launches it, named
-in "path", and the same for every path under "by_path"), and
+eval_flow, geom_all, geom_ls1, flow_ls1, depth_ls1, two_view, flowpose that
+launches it, named in "path", and the same for every path under
+"by_path"), and
 {"ok": true, "device": {...}}. Details (per-shape kernel table, compiler
 report, profiles) go to chiprun_out/chip_smoke/.
 """
@@ -123,9 +143,11 @@ _TPU = "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/"
 # with the triangulation, PnP, eight-point and depth consistency losses;
 # geom_ls1, flow_ls1 and depth_ls1 the steps at loss_base_scale=1, flow
 # under "splat"; a "step" is a train step) and phase 7's eval_flow (the f32
-# flow inference of the KITTI 2015 eval; a "step" is a batch of 8 pairs)
+# flow inference of the KITTI 2015 eval; a "step" is a batch of 8 pairs), and
+# phase 9's two_view (TriangulationPoseModel's inference, f32; a "step" is a
+# batch of 8 pairs) and flowpose (a FlowPoseModel train step, f32, b8)
 PATHS = ("geom", "flow", "depth", "geom_regather", "eval_flow", "geom_all", "geom_ls1",
-         "flow_ls1", "depth_ls1")
+         "flow_ls1", "depth_ls1", "two_view", "flowpose")
 CHECKED: dict[str, set] = {}  # kernel -> launch signatures held in phase 3
 
 
@@ -396,8 +418,10 @@ def phase_kernels():
     # rows are 8-byte aligned; the five levels of the CLI's f32 mask dump and
     # of an eval's last short batch (B = 2: KITTI 2012's 194 = 24 x 8 + 2);
     # and the five levels of the eval's f32 flow inference at B = 8
-    # ("eval": the forward alone, on the eval_flow path), and at B = 1 (the
-    # synthetic world's eval of phase 8 infers one pair at a time)
+    # ("eval": the forward alone, on the eval_flow path, and on phase 9's
+    # two_view inference and FlowPoseModel step, which run the same f32 PWC
+    # forward on 8 pairs), and at B = 1 (the synthetic world's eval of phase
+    # 8 infers one pair at a time)
     levels = [(4, 13, 196), (8, 26, 128), (16, 52, 96), (32, 104, 64), (64, 208, 32)]
     cases = [(h, w, c, "bfloat16", "train", 16) for h, w, c in levels] + [
         (64, 208, 32, "float32", None, 16), (4, 13, 196, "float32", None, 16)] + [
@@ -446,7 +470,8 @@ def phase_kernels():
                 per_step=({**train_corr, **({"geom_regather": 1} if name == "corr_fwd" else
                                             no_ls1 if h == 64 else {})}
                           if on_path == "train" else
-                          {"eval_flow": 1} if on_path == "eval" and name == "corr_fwd" else {}),
+                          {"eval_flow": 1, "two_view": 1, "flowpose": 1}
+                          if on_path == "eval" and name == "corr_fwd" else {}),
                 max_abs_err=err, tol=rel * scale, ok=err <= rel * scale,
                 ms=cuda_ms(k_fn, 20), device_ms=graph_ms(k_fn),
                 plain_ms=cuda_ms(p_fn, 3) if name == "corr_fwd" else plain_bwd_ms,
@@ -460,12 +485,14 @@ def phase_kernels():
     # the zero padding acts) on its own.
     # The CLI's f32 mask dump takes the three scales of one item (B = 1). At
     # loss_base_scale=1 the planes are half the size: 128x416 down to 32x104.
+    # FlowPoseModel's pairwise loss (phase 9) takes one full-size f32 map of
+    # B = 8, forward and backward.
     three = {"geom": 2, "flow": 2, "geom_regather": 2, "geom_all": 2}
     three_half = {**three, "geom_ls1": 2, "flow_ls1": 2}
     cases = [(256, 832, 3, "bfloat16", three, 8), (128, 416, 3, "bfloat16", three_half, 8),
              (64, 208, 3, "bfloat16", three_half, 8),
              (32, 104, 3, "bfloat16", {"geom_ls1": 2, "flow_ls1": 2}, 8),
-             (256, 832, 3, "float32", {}, 8),
+             (256, 832, 3, "float32", {"flowpose": 1}, 8),
              (64, 208, 5, "bfloat16", {}, 8)] + [
              (h, w, 3, "float32", {}, 1) for h, w in ((256, 832), (128, 416), (64, 208))]
     for h, w, c, dts, per_step, b in cases:
@@ -1454,7 +1481,8 @@ def _eval_card_vs_cpu(cfg, t: dict, sd: dict, gt: tuple):
 def phase_eval(smi: str, root: str):
     """Phase 7: evaluation and inference on the card, from the geom
     checkpoint that the CLI phase left in ``root``. Returns the eval_flow
-    path's (launches by kernel, batches)."""
+    path's (launches by kernel, batches) and the YAML that names the
+    synthetic trees."""
     import numpy as np
     import torch
 
@@ -1555,7 +1583,7 @@ def phase_eval(smi: str, root: str):
         fail(f"eval: launches with signatures (dtype codes, sizes) that the kernels phase did "
              f"not hold against the plain version: {unchecked}")
     log(f"eval: phase {time.perf_counter() - t_start:.1f} s")
-    return launches, 25
+    return (launches, 25), eval_yaml
 
 
 SYNTH_STEPS = 20  # a stage of phase 8
@@ -1668,6 +1696,286 @@ def phase_synth(root: str):
     log(f"synth: phase {time.perf_counter() - t_start:.1f} s")
 
 
+TWO_VIEW_TASKS = {"kitti_flow_2015": "[EVAL] [kitti_2015]", "kitti_flow_2012": "[EVAL] [kitti_2012]"}
+FLOWPOSE_STEPS = (2, 10)  # warm-up, timed
+
+
+def _printed_flow_metrics(text: str) -> dict:
+    """The metrics block the eval CLI prints last (format_flow_metrics)."""
+    header, values = text.strip().splitlines()[-2:]
+    return dict(zip([k.strip() for k in header.split(",")], [float(v) for v in values.split(",")]))
+
+
+def _rigid_scene(b, h, w, gen):
+    """A rigid two-view scene: depth with relief (4-10 m, a smooth random
+    field per item), a pose each (0.3-0.9 m forward, up to 0.3 m sideways,
+    rotations up to 0.03 rad), K as the train phases'. Returns (depth
+    [B,H,W,1], pose [B,6], K, K_inv [B,3,3]) on the CPU."""
+    import torch
+    import torch.nn.functional as F
+
+    coarse = torch.rand(b, 1, h // 32 + 2, w // 32 + 2, generator=gen)
+    field = F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=False)
+    lo = field.amin(dim=(2, 3), keepdim=True)
+    hi = field.amax(dim=(2, 3), keepdim=True)
+    depth = (4.0 + 6.0 * (field - lo) / (hi - lo)).permute(0, 2, 3, 1).contiguous()
+    t = torch.rand(b, 3, generator=gen) * torch.tensor([0.6, 0.1, 0.6]) - torch.tensor([0.3, 0.05, -0.3])
+    r = 0.06 * torch.rand(b, 3, generator=gen) - 0.03
+    K = torch.tensor([[241.0, 0, w / 2], [0, 245.0, h / 2], [0, 0, 1]]).expand(b, 3, 3).contiguous()
+    return depth, torch.cat([t, r], 1), K, torch.linalg.inv(K)
+
+
+def _flowpose_parity():
+    """One forward_train step of FlowPoseModel, card against CPU, at 64x128
+    b2 f32 (TF32 off), the same weights (seeded nonzero FlowPoseNet biases,
+    so the warp is not the identity) and frames. Losses to 1e-3 relative +
+    1e-7 (as phase 4), the gradients of depth_net and flow_pose_net stated
+    and held to 2e-2 relative L2 (phase 4's bar)."""
+    import copy
+
+    import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch.models import FlowPoseModel
+    from unsupervised_depth_opticalflow_egomotion_torch.models.layers import init_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = FlowPoseModel()
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in cpu.flow_pose_net.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    images, K_ms, K_inv = _batch(2, 64, 128, "cpu")
+    stack = images[:, :2 * 64].float() / 255.0  # the first two frames
+    res = {}
+    for dev, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).cuda())):
+        pack = model.forward_train(stack.to(dev), K_ms.to(dev), K_inv.to(dev))
+        sum(v.mean() for v in pack.values()).backward()
+        res[dev] = ({k: v.detach().cpu() for k, v in pack.items()},
+                    {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None})
+    (p_cpu, g_cpu), (p_gpu, g_gpu) = res["cpu"], res["cuda"]
+    worst = max(float(((p_gpu[k] - v).abs() / (1e-3 * v.abs() + 1e-7)).max()) for k, v in p_cpu.items())
+    grads = {}
+    for net in ("depth_net", "flow_pose_net"):
+        ks = [k for k in g_cpu if k.startswith(net + ".")]
+        a = torch.cat([g_gpu[k].flatten() for k in ks])
+        b = torch.cat([g_cpu[k].flatten() for k in ks])
+        grads[net] = float((a - b).norm() / b.norm())
+    log(f"two_view: FlowPoseModel forward_train 64x128 b2 f32 card vs cpu: worst loss error "
+        f"{worst:.3g} of its tolerance (1e-3 relative + 1e-7), gradient rel L2 err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in grads.items()) + " (tol 2e-2); losses card "
+        + json.dumps({k: [round(float(x), 6) for x in v] for k, v in p_gpu.items()}))
+    if worst > 1.0 or max(grads.values()) > 2e-2 or set(g_cpu) != set(g_gpu) \
+            or any(k.startswith(("fpyramid.", "pwc_model.")) for k in g_gpu):
+        fail("two_view: the card's FlowPoseModel step disagrees with the CPU's")
+
+
+def _held(kernels: dict, what: str) -> None:
+    """Fail if a launch since the last clear of ``seen`` had a signature that
+    the kernels phase did not hold against the plain version."""
+    unchecked = {n: sorted(k.seen - CHECKED[n]) for n, k in kernels.items() if k.seen - CHECKED[n]}
+    if unchecked:
+        fail(f"two_view: {what}: launches with signatures that the kernels phase did not hold "
+             f"against the plain version: {unchecked}")
+
+
+def phase_two_view(smi: str, root: str, eval_yaml: str) -> dict:
+    """Phase 9: the legacy two-view and flow-to-pose families on the card.
+    The eval CLI's ``--mode two_view`` for both flow tasks (subprocesses,
+    started first) from phase 6's geom checkpoint on phase 7's trees, whose
+    EPEs must be the geom-mode tasks' of phase 7 (the same PWC forward);
+    meanwhile, in this process: the two-view model at b8 256x832 f32 on the
+    card against the CPU (the nets' half on 8 of the tree's pairs; the
+    geometric half on the exact rigid flow of a known depth and pose, both
+    devices against the truth), ``FlowPoseModel``'s forward_train card
+    against CPU at 64x128, and its training at b8 256x832 f32 with Adam.
+    Returns the launches of the two_view (inference batches) and flowpose
+    (train steps) paths, and the profile of the FlowPoseModel step to take
+    once every timed run is done."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch import eval_tasks
+    from unsupervised_depth_opticalflow_egomotion_torch import test as eval_cli
+    from unsupervised_depth_opticalflow_egomotion_torch.config import load_config
+    from unsupervised_depth_opticalflow_egomotion_torch.data import KittiFlowEval
+    from unsupervised_depth_opticalflow_egomotion_torch.models import FlowPoseModel
+    from unsupervised_depth_opticalflow_egomotion_torch.models import triangulation_pose as tp
+    from unsupervised_depth_opticalflow_egomotion_torch.models.layers import init_weights
+    from unsupervised_depth_opticalflow_egomotion_torch.ops.geometry import (
+        calculate_rigid_flow,
+        pose_vec2mat,
+    )
+    from unsupervised_depth_opticalflow_egomotion_torch.parallel import build_model
+    from unsupervised_depth_opticalflow_egomotion_torch.utils import CheckpointManager
+
+    t_start = time.perf_counter()
+    ckpt = os.path.join(root, "geom", "ckpt")
+    kernels = {n: k for n, (k, _) in path_kernels().items()}
+    procs = {}
+    by_path = {}
+    try:
+        for task in TWO_VIEW_TASKS:
+            out = open(os.path.join(OUT_DIR, f"two_view_cli_{task}.txt"), "w")
+            cmd = [sys.executable, "-m", "unsupervised_depth_opticalflow_egomotion_torch.test",
+                   "-c", eval_yaml, "--mode", "two_view", "--task", task,
+                   "--pretrained_model", ckpt, "--result_dir", os.path.join(root, "two_view", task)]
+            procs[task] = (subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT), out)
+
+        # the two-view model on the geom checkpoint, card and CPU, f32
+        cfg = load_config(eval_yaml, mode="geom", compute_dtype="float32")
+        joint = build_model(cfg, "cpu")
+        joint.load_state_dict(CheckpointManager(ckpt).restore_params())
+        tv_cpu = eval_cli.two_view_model(joint, cfg)
+        tv = copy.deepcopy(tv_cpu).cuda()
+        del joint
+        h, w = cfg.img_hw
+        ds = KittiFlowEval(cfg.gt_2015_dir, "kitti_2015", cfg.img_hw)
+        group = [ds[i] for i in range(8)]
+        pairs = np.stack([s[0] for s in group])
+        K = torch.from_numpy(np.stack([s[1] for s in group]))
+        K_inv = torch.from_numpy(np.stack([s[2] for s in group]))
+        img1, img2 = (torch.from_numpy(np.ascontiguousarray(x)) for x in (pairs[:, :h], pairs[:, h:]))
+        draws = tv.draw(8, (h, w))
+        with torch.inference_mode(), eval_tasks.full_precision():
+            t0 = time.perf_counter()
+            want = tv_cpu.inference(img1, img2, K, K_inv, draws=draws)
+            cpu_s = time.perf_counter() - t0
+            args = [x.cuda() for x in (img1, img2, K, K_inv)]
+            got = tv.inference(*args, draws=draws)  # warm-up
+            torch.cuda.synchronize()
+            for k in kernels.values():
+                k.launches = 0
+                k.seen.clear()
+            n_tv = 3
+            t0 = time.perf_counter()
+            for _ in range(n_tv):
+                got = tv.inference(*args, draws=draws)
+            torch.cuda.synchronize()
+            tv_ms = (time.perf_counter() - t0) / n_tv * 1e3
+            by_path["two_view"] = ({n: k.launches for n, k in kernels.items()}, n_tv)
+            err_flow = max_err(got[0].cpu(), want[0])
+            err_disp = max(max_err(got[1].cpu(), want[1]), max_err(got[2].cpu(), want[2]))
+
+            # the geometric half on an exact rigid flow, both devices
+            depth, pose, Kr, Kr_inv = _rigid_scene(8, h, w, torch.Generator().manual_seed(3))
+            flow = calculate_rigid_flow(depth, pose, Kr)
+            T = pose_vec2mat(pose)
+            rigid = {}
+            for dev in ("cpu", "cuda"):
+                d = {k: v.to(dev) for k, v in draws.items()}
+                rigid[dev] = tp.two_view_geometry(flow.to(dev), Kr.to(dev), Kr_inv.to(dev), d)[0].cpu()
+        r_err = {d: float((rt[:, :, :3] - T[:, :, :3]).abs().max()) for d, rt in rigid.items()}
+        cos = {d: float(((rt[:, :, 3] * T[:, :, 3]).sum(-1)
+                         / (rt[:, :, 3].norm(dim=-1) * T[:, :, 3].norm(dim=-1))).min())
+               for d, rt in rigid.items()}
+        log(f"two_view: b8 {h}x{w} f32 (TF32 off), ransac_points {tv.ransac_points}, "
+            f"{tv.ransac_iters} iterations, the same draws: nets' half card vs cpu max |diff| flow "
+            f"{err_flow:.3g} px (tol {EVAL_TOL['flow']}), disparity {err_disp:.3g} (tol "
+            f"{EVAL_TOL['disp']}); geometric half on the exact rigid flow of a known depth and "
+            f"pose: max |R - R_true| card {r_err['cuda']:.3g} cpu {r_err['cpu']:.3g} (tol 1e-2), "
+            f"min cos(t, t_true) card {cos['cuda']:.6f} cpu {cos['cpu']:.6f} (bar 0.999), card "
+            f"vs cpu |Rt| {float((rigid['cuda'] - rigid['cpu']).abs().max()):.3g}")
+        log(f"two_view: inference {tv_ms:.1f} ms a batch of 8 on the card (device-resident, "
+            f"{n_tv} batches, host clock), {cpu_s:.1f} s on the CPU | nvidia-smi: {smi}")
+        if err_flow > EVAL_TOL["flow"] or err_disp > EVAL_TOL["disp"] \
+                or max(r_err.values()) > 1e-2 or min(cos.values()) <= 0.999:
+            fail("two_view: the card's two-view inference disagrees with the CPU's or the truth")
+        want_tv = {n: 5 * n_tv if n == "corr_fwd" else 0 for n in kernels}
+        if by_path["two_view"][0] != want_tv:
+            fail(f"two_view: kernel launches {by_path['two_view'][0]}, expected {want_tv}")
+        _held(kernels, "two_view inference")
+        del tv, tv_cpu
+
+        _flowpose_parity()
+
+        # FlowPoseModel training at full width: the flow nets frozen (no
+        # autograd), Adam over the depth net and FlowPoseNet
+        model = FlowPoseModel()
+        init_weights(model, torch.Generator().manual_seed(0))
+        model = model.cuda().train()
+        opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+        images, K_ms, K_inv_ms = _batch(8, h, w, torch.device("cuda"))
+        stack = images[:, :2 * h].float() / 255.0
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        warmup, timed = FLOWPOSE_STEPS
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+            k.seen.clear()
+
+        def train_step(_=None):
+            opt.zero_grad(set_to_none=True)
+            pack = model.forward_train(stack, K_ms, K_inv_ms)
+            total = sum(v.mean() for v in pack.values())
+            total.backward()
+            opt.step()
+            return total.detach()
+
+        losses = []
+        for i in range(warmup + timed):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            losses.append(train_step())
+        torch.cuda.synchronize()
+        fp_ms = (time.perf_counter() - t0) / timed * 1e3
+        launches = {n: k.launches for n, k in kernels.items()}
+        by_path["flowpose"] = (launches, warmup + timed)
+        values = [float(x) for x in losses]
+        after = dict(model.named_parameters())
+        moved = {net: not torch.equal(before[name], after[name]) for net, name in (
+            ("depth_net", "depth_net.encoder.encoder.conv1.weight"),
+            ("flow_pose_net", "flow_pose_net.conv1.weight"))}
+        strayed = [k for k, v in before.items()
+                   if k.startswith(("fpyramid.", "pwc_model.")) and not torch.equal(v, after[k])]
+        per_step = {"corr_fwd": 5, "ssim_fwd": 1, "ssim_bwd": 1}
+        want_fp = {n: per_step.get(n, 0) * (warmup + timed) for n in kernels}
+        log(f"two_view: FlowPoseModel train b8 {h}x{w} f32 (TF32 off): {warmup + timed} steps, {timed} timed, "
+            f"{fp_ms:.1f} ms/step, launches/step {json.dumps(per_step)}, losses {values[0]:.5f} -> "
+            f"{values[-1]:.5f}, moved {json.dumps(moved)}")
+        _metric_line(f"frames/sec FlowPoseModel forward_train fwd-bwd (b8 {h}x{w} f32, PyTorch port)",
+                     fp_ms, smi)
+        if not all(math.isfinite(v) for v in values) or not all(moved.values()) or strayed:
+            fail(f"two_view: FlowPoseModel training: losses {values}, moved {moved}, flow nets "
+                 f"moved {strayed[:5]}")
+        if launches != want_fp:
+            fail(f"two_view: FlowPoseModel kernel launches {launches}, expected {want_fp}")
+        _held(kernels, "FlowPoseModel training")
+        # the CLI: each flow task's EPEs against the geom-mode task's of phase 7
+        for task, marker in TWO_VIEW_TASKS.items():
+            proc, out = procs[task]
+            rc = proc.wait(timeout=900)
+            out.close()
+            with open(out.name) as f:
+                text = f.read()
+            if rc != 0 or marker not in text:
+                fail(f"two_view cli {task}: exited {rc}: {text[-2000:]}")
+            with open(os.path.join(OUT_DIR, f"eval_cli_{task}.txt")) as f:
+                geom = _printed_flow_metrics(f.read())
+            got = _printed_flow_metrics(text)
+            # printed with four decimals: 1e-5 relative plus half the last digit
+            bad = {k: (got[k], geom[k]) for k in geom if k.startswith("epe")
+                   and abs(got[k] - geom[k]) > 1e-5 * abs(geom[k]) + 5e-5}
+            log(f"two_view cli {task}: python3 -m unsupervised_depth_opticalflow_egomotion_torch.test "
+                f"--mode two_view exited 0: {json.dumps(got)}; geom mode (phase 7) "
+                f"{json.dumps(geom)}")
+            if bad or set(got) != set(geom):
+                fail(f"two_view cli {task}: EPEs unlike the geom-mode task's: {bad}")
+    finally:
+        for proc, out in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    log(f"two_view: phase {time.perf_counter() - t_start:.1f} s")
+    return by_path, lambda: _profile("flowpose f32", train_step, None, fp_ms, verbose=True)
+
+
 def _profile(name, step, batch, step_ms: float, verbose: bool):
     """Device time by kernel and by launching op over two profiled steps;
     the busy share is the kernels' device time over the unprofiled step.
@@ -1733,9 +2041,12 @@ def main():
     # the runs' directories are large: a temporary one, removed afterwards
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         phase_cli(smi, ms_geom, root)
-        by_path["eval_flow"] = phase_eval(smi, root)
+        by_path["eval_flow"], eval_yaml = phase_eval(smi, root)
         phase_synth(root)
+        tv_paths, flowpose_profile = phase_two_view(smi, root, eval_yaml)
+        by_path.update(tv_paths)
     profiles()
+    flowpose_profile()
 
     table = []
     for name, (kernel, replaces) in path_kernels().items():
@@ -1776,7 +2087,7 @@ def main():
         })
     log(f"total {time.perf_counter() - t_start:.1f} s; a kernel's launches are those of the "
         "run of its path, and its times are per train step of that path (per batch of 8 "
-        "pairs on eval_flow; each shape's time times its launches a step)")
+        "pairs on eval_flow and two_view; each shape's time times its launches a step)")
     log(smi)
     log(json.dumps({"kernels": table}))
     log(json.dumps({"ok": True, "device": {

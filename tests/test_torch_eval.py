@@ -26,7 +26,11 @@ from unsupervised_depth_opticalflow_egomotion_torch import test as tcli
 from unsupervised_depth_opticalflow_egomotion_torch.config import Config
 from unsupervised_depth_opticalflow_egomotion_torch.data import KittiFlowEval as TFlowEval
 from unsupervised_depth_opticalflow_egomotion_torch.data import nyu as tnyu
-from unsupervised_depth_opticalflow_egomotion_torch.evaluation import read_flow_png
+from unsupervised_depth_opticalflow_egomotion_torch.evaluation import (
+    format_flow_metrics as tformat_flow_metrics,
+    load_gt_flow_kitti as tload_gt_flow_kitti,
+    read_flow_png,
+)
 from unsupervised_depth_opticalflow_egomotion_torch.parallel import build_model, make_optimizer
 from unsupervised_depth_opticalflow_egomotion_torch.utils import CheckpointManager, load_jax_variables
 from unsupervised_depth_opticalflow_egomotion_tpu import eval_tasks as jtasks
@@ -318,12 +322,22 @@ def test_inference_fns_default_to_cuda(nets):
         ttasks.make_inference_fns(copy.deepcopy(nets[3]))
 
 
-def test_eval_cli_two_view_raises(trees, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 6"):
-        tcli.run(tcli.parse_args(["-c", trees["yaml"], "--mode", "two_view",
-                                  "--result_dir", str(tmp_path)]), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttasks.make_two_view_inference_fn(None, None)
+def test_eval_cli_two_view(nets, trees, checkpoint, tmp_path, capsys, monkeypatch):
+    """``--mode two_view`` runs on the CPU from the checkpoint: the flow task
+    through ``TriangulationPoseModel`` on the joint model's flow and depth
+    nets, here on the first four pairs; its flow is the joint model's, so
+    it prints the metrics of the geom-mode flow task. (Held against the JAX
+    package in tests/test_torch_two_view.py.)"""
+    monkeypatch.setattr(ttasks, "KittiFlowEval", _limited(TFlowEval))
+    tcli.run(tcli.parse_args(["-c", trees["yaml"], "--mode", "two_view", "--task",
+                              "kitti_flow_2012", "--pretrained_model", checkpoint,
+                              "--result_dir", str(tmp_path)]), device="cpu")
+    out = capsys.readouterr().out
+    assert f"restored checkpoint from {checkpoint}" in out and "[EVAL] [kitti_2012]" in out
+    _, tcfg = _cfgs(trees)
+    gt, noc = tload_gt_flow_kitti(trees["flow"], "kitti_2012")
+    want = ttasks.test_kitti_flow(tcfg, nets[4][0], gt, noc, "kitti_2012")
+    assert out.strip().endswith(tformat_flow_metrics(want).strip())
 
 
 def test_eval_entry_point_raises_without_a_card(trees, tmp_path):

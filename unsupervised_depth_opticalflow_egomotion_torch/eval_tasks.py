@@ -6,10 +6,9 @@ the metric protocols are the JAX package's, bit for bit (Garg crop + median
 scaling for depth, flow value-rescaling to GT resolution,
 snippet-compensated ATE/RE for pose). The tasks are host-side numpy and
 take the inference closures of ``make_inference_fns``, which move each
-numpy batch to the card and return numpy.
-
-Not ported yet: the legacy two-view inference (``TriangulationPoseModel``),
-ROADMAP.md queue 1, item 6.
+numpy batch to the card and return numpy; the flow tasks take the legacy
+two-view inference (``make_two_view_inference_fn`` over a
+``TriangulationPoseModel``) in its place when given ``two_view_fn``.
 """
 
 from __future__ import annotations
@@ -33,12 +32,6 @@ from .evaluation import compute_snippet_pose_error, eval_depth, eval_flow_avg, w
 from .evaluation.flow_io import resize_flow
 from .ops.geometry import pose_vec2mat
 from .utils.device import resolve_device
-
-TWO_VIEW_UNPORTED = (
-    "two-view inference (TriangulationPoseModel: flow -> RANSAC-F -> pose) is not "
-    "ported yet (ROADMAP.md queue 1, item 6)"
-)
-
 
 def _batched(items, batch_size):
     for i in range(0, len(items), batch_size):
@@ -88,17 +81,33 @@ def make_inference_fns(model, device=None):
     )
 
 
-def make_two_view_inference_fn(tv_model, variables):
-    """The legacy two-view inference (``TriangulationPoseModel.inference``):
-    not ported yet."""
-    raise NotImplementedError(TWO_VIEW_UNPORTED)
+def make_two_view_inference_fn(tv_model, device=None):
+    """The legacy two-view inference over ``tv_model`` (a
+    ``TriangulationPoseModel``, moved to ``device``: CUDA unless
+    ``device="cpu"``; raises without a card): ``fn(img1, img2, K, K_inv)``
+    on float32 numpy batches returns numpy (flow [b,H,W,2], disp1, disp2
+    [b,H,W,1], Rt [b,3,4]), run under ``torch.inference_mode()`` and
+    ``full_precision()`` with the model's default draws (seed 0)."""
+    dev = resolve_device(device)
+    tv_model.to(dev)
+
+    def fn(img1, img2, K, K_inv):
+        with torch.inference_mode(), full_precision():
+            args = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                    for a in (img1, img2, K, K_inv)]
+            flow, disp1, disp2, Rt, _, _ = tv_model.inference(*args)
+            return tuple(t.cpu().numpy() for t in (flow, disp1, disp2, Rt))
+
+    return fn
 
 
-def predict_flows(cfg: Config, flow_fn, mode: str, batch_size: int = 8):
+def predict_flows(cfg: Config, flow_fn, mode: str, batch_size: int = 8, two_view_fn=None):
     """Run flow inference over a KITTI flow benchmark -> list of [h,w,2].
 
-    Samples are decoded batch by batch so only one batch is resident on the
-    host at a time.
+    With ``two_view_fn`` the flow comes from the legacy two-view pipeline
+    (the reference's test.py:33,64: ``model.inference(img1, img2, K,
+    K_inv)`` in the non-geom branch). Samples are decoded batch by batch so
+    only one batch is resident on the host at a time.
     """
     dataset = KittiFlowEval(
         cfg.gt_2012_dir if mode == "kitti_2012" else cfg.gt_2015_dir,
@@ -110,16 +119,21 @@ def predict_flows(cfg: Config, flow_fn, mode: str, batch_size: int = 8):
         group = [dataset[i] for i in group_idx]
         imgs = np.stack([s[0] for s in group])  # [b, 2H, W, 3]
         h = imgs.shape[1] // 2
-        flow = np.asarray(flow_fn(imgs[:, :h], imgs[:, h:]))
+        if two_view_fn is not None:
+            K = np.stack([s[1] for s in group])
+            K_inv = np.stack([s[2] for s in group])
+            flow = np.asarray(two_view_fn(imgs[:, :h], imgs[:, h:], K, K_inv)[0])
+        else:
+            flow = np.asarray(flow_fn(imgs[:, :h], imgs[:, h:]))
         flows.extend(flow[i] for i in range(flow.shape[0]))
     return flows
 
 
 def test_kitti_flow(cfg: Config, flow_fn, gt_flows, noc_masks, mode: str,
-                    moving_masks=None, submission_dir: str | None = None):
+                    moving_masks=None, submission_dir: str | None = None, two_view_fn=None):
     """Flow benchmark eval; optionally writes 16-bit submission PNGs
-    (test.py:267-312)."""
-    flows = predict_flows(cfg, flow_fn, mode)
+    (test.py:267-312). ``two_view_fn`` as in ``predict_flows``."""
+    flows = predict_flows(cfg, flow_fn, mode, two_view_fn=two_view_fn)
     if submission_dir:
         os.makedirs(submission_dir, exist_ok=True)
         for i, f in enumerate(flows):

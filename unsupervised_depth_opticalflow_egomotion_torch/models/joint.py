@@ -48,6 +48,7 @@ from ..ops.triangulation import midpoint_triangulate, register_depth, reproject
 from ..ops.warp import WarpRoute, warp_flow
 from .depth_net import DepthNet
 from .feature_pyramid import FeaturePyramid
+from .layers import module_mode
 from .pose_net import PoseNet
 from .pwc_decoder import PWCDecoder
 
@@ -145,14 +146,8 @@ class JointModel(nn.Module):
     # frames in [0, 1], cast to the compute dtype; outputs are f32.
     @contextlib.contextmanager
     def _inference(self):
-        modes = [(m, m.training) for m in self.modules()]
-        self.eval()
-        try:
-            with torch.no_grad():
-                yield
-        finally:
-            for m, training in modes:
-                m.training = training
+        with module_mode(self, False), torch.no_grad():
+            yield
 
     def infer_disp(self, img):
         """Raw full-resolution sigmoid disparity [B,H,W,1]."""

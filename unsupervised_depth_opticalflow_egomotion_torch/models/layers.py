@@ -14,6 +14,7 @@ Padding is explicit and symmetric (torch-style), never 'SAME'.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -145,6 +146,19 @@ class BatchNorm(nn.Module):
 def max_pool_3x3_s2_p1(x):
     """torch MaxPool2d(kernel_size=3, stride=2, padding=1) on NHWC."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
+@contextlib.contextmanager
+def module_mode(module: nn.Module, training: bool):
+    """``module`` and every submodule in train (True) or eval mode for the
+    duration; each one's own mode comes back after."""
+    modes = [(m, m.training) for m in module.modules()]
+    module.train(training)
+    try:
+        yield
+    finally:
+        for m, was in modes:
+            m.training = was
 
 
 def init_weights(module: nn.Module, gen: torch.Generator) -> None:

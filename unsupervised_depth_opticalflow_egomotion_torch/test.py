@@ -12,8 +12,12 @@ checkpoint directory of the port's training CLI, whose latest step file
 gives the parameters and the BatchNorm running statistics (no optimizer is
 read). It runs on the card and raises without one; ``run(args,
 device="cpu")`` runs the plain versions of the kernels on the CPU.
-``--mode two_view`` raises ``NotImplementedError`` (ROADMAP.md queue 1,
-item 6).
+
+``--mode two_view`` loads the checkpoint as a geom model and scores the
+flow tasks with the legacy two-view pipeline (``TriangulationPoseModel``:
+flow -> RANSAC-F -> pose, on the joint model's flow and depth nets, its
+``ransac_iters`` and ``ransac_points``); the other tasks use the joint
+model, as the repository's ``test.py`` does.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from . import eval_tasks
 from .config import load_config
 from .data import nyu
 from .evaluation import KittiEvalOdom, format_flow_metrics, load_gt_flow_kitti, load_gt_mask
+from .models import TriangulationPoseModel
 from .parallel import build_model
 from .utils import CheckpointManager, resolve_device
 
@@ -37,7 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument(
         "--mode", default="geom", choices=["flow", "depth", "geom", "two_view"],
         help="two_view = legacy TrianFlow pipeline: flow -> RANSAC-F -> pose "
-        "(not ported yet: raises)",
+        "(reference test.py:33,64 non-geom branch)",
     )
     parser.add_argument("--task", default="kitti_depth", choices=TASKS)
     parser.add_argument("--image_path", default=None, help="for --task demo")
@@ -48,13 +53,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     return parser.parse_args(argv)
 
 
+def two_view_model(model, cfg) -> TriangulationPoseModel:
+    """``TriangulationPoseModel`` on the joint model's flow and depth nets:
+    its parameters and BatchNorm buffers, loaded strictly. The depth net's
+    extra coarse heads of ``loss_base_scale`` are left out (the two-view
+    model reads the ``num_scales`` heads only)."""
+    tv = TriangulationPoseModel(cfg.num_scales, cfg.ransac_iters, cfg.ransac_points)
+    extra = tuple(f"depth_net.decoder.dispconvs.{s}."
+                  for s in range(cfg.num_scales, cfg.num_scales + cfg.loss_base_scale))
+    sd = {k: v for k, v in model.state_dict().items()
+          if k.startswith(("fpyramid.", "pwc_model.", "depth_net.")) and not k.startswith(extra)}
+    tv.load_state_dict(sd, strict=True)
+    return tv
+
+
 def run(args: argparse.Namespace, device=None) -> None:
     """Evaluate ``args.task``; prints its metrics as the JAX CLI does."""
-    if args.mode == "two_view":
-        raise NotImplementedError(eval_tasks.TWO_VIEW_UNPORTED)
     dev = resolve_device(device)
     cfg = load_config(
-        args.config_file, mode=args.mode, model_dir=args.result_dir,
+        args.config_file, mode="geom" if args.mode == "two_view" else args.mode,
+        model_dir=args.result_dir,
         compute_dtype="float32",  # eval in full precision
     )
     os.makedirs(args.result_dir, exist_ok=True)
@@ -64,6 +82,9 @@ def run(args: argparse.Namespace, device=None) -> None:
         model.load_state_dict(CheckpointManager(args.pretrained_model).restore_params())
         print(f"restored checkpoint from {args.pretrained_model}")
     flow_fn, disp_fn, pose_fn = eval_tasks.make_inference_fns(model, dev)
+    two_view_fn = None
+    if args.mode == "two_view":
+        two_view_fn = eval_tasks.make_two_view_inference_fn(two_view_model(model, cfg), dev)
 
     if args.task == "kitti_depth":
         res = eval_tasks.test_eigen_depth(cfg, disp_fn)
@@ -77,7 +98,7 @@ def run(args: argparse.Namespace, device=None) -> None:
         sub_dir = os.path.join(args.result_dir, "submission") if args.write_submission else None
         m = eval_tasks.test_kitti_flow(
             cfg, flow_fn, gt_flows, noc_masks, mode, moving_masks=moving,
-            submission_dir=sub_dir,
+            submission_dir=sub_dir, two_view_fn=two_view_fn,
         )
         print(f"[EVAL] [{mode}]")
         print(format_flow_metrics(m))

@@ -1,4 +1,4 @@
-"""Load the JAX package's variables into the port's ``JointModel``.
+"""Carry the JAX package's variables into the port's models and back.
 
 The port's modules carry the reference's state_dict names, so the mapping
 from the JAX package's flax tree is a table: this module's own copy of the
@@ -15,6 +15,9 @@ FrozenDicts) of numpy arrays, and loads them strictly: every parameter and
 buffer of the model must be set and every leaf of the tree must be used.
 ``jax_variables`` goes the other way. A model with the loss base scale's
 extra disparity heads maps them to the JAX tree's ``ReflectConv3x3_x{s}``.
+The models are ``JointModel``, ``TriangulationPoseModel`` and
+``FlowPoseModel`` (each by the sub-networks it holds, one table group a
+sub-network) and the two attention modules (their convs and ``gamma``).
 """
 
 from __future__ import annotations
@@ -25,14 +28,12 @@ import numpy as np
 import torch
 
 
-def name_table(num_scales: int = 3, extra_head_scales: int = 0) -> Iterator[tuple[str, str, str]]:
-    """(kind, torch module name, flax path) for every mapped layer.
-
-    ``kind`` is "conv", "linear" or "bn". Convs with a bias in the flax tree
-    map their bias too.
-    """
+def _fpyramid_names():
     for i in range(12):
         yield "conv", f"fpyramid.conv{i + 1}.0", f"fpyramid/ConvLReLU_{i}/Conv_0"
+
+
+def _pwc_names():
     # torch level order conv6..conv2 == flax DenseFlowBlock_0..4
     for blk, lvl in enumerate((6, 5, 4, 3, 2)):
         for j in range(5):
@@ -46,6 +47,8 @@ def name_table(num_scales: int = 3, extra_head_scales: int = 0) -> Iterator[tupl
         yield "conv", f"pwc_model.dc_conv{j + 1}.0", f"pwc/ContextNet_0/ConvLReLU_{j}/Conv_0"
     yield "conv", "pwc_model.dc_conv7", "pwc/ContextNet_0/Conv_0/Conv_0"
 
+
+def _pose_net_names():
     for i in range(7):
         yield "conv", f"pose_net.net.{i}", f"pose_net/Conv_{i}/Conv_0"
     yield "conv", "pose_net.pose_conv", "pose_net/Conv_7/Conv_0"
@@ -55,6 +58,8 @@ def name_table(num_scales: int = 3, extra_head_scales: int = 0) -> Iterator[tupl
     for name in ("query_fc", "key_fc", "value_fc"):
         yield "linear", f"pose_net.{name}", f"pose_net/{name}"
 
+
+def _depth_net_names(num_scales: int, extra_head_scales: int):
     enc, fenc = "depth_net.encoder.encoder", "depth_net/ResNet18Encoder_0"
     yield "conv", f"{enc}.conv1", f"{fenc}/Conv_0"
     yield "bn", f"{enc}.bn1", f"{fenc}/BatchNorm_0"
@@ -92,12 +97,49 @@ def name_table(num_scales: int = 3, extra_head_scales: int = 0) -> Iterator[tupl
         yield "conv", f"depth_net.decoder.dispconvs.{s}.conv", f"{dec}/ReflectConv3x3_x{s}/Conv_0"
 
 
-def _node(tree: Mapping, path: str, used: set, prefix: str):
-    node = tree
-    for part in path.split("/"):
-        node = node[part]
-    used.add(f"{prefix}/{path}")
-    return node
+def _flow_pose_net_names():
+    # flax Conv_0..6 are conv1..conv7, Conv_7 the 1x1 head
+    for i in range(7):
+        yield "conv", f"flow_pose_net.conv{i + 1}", f"flow_pose_net/Conv_{i}/Conv_0"
+    yield "conv", "flow_pose_net.pose_pred", "flow_pose_net/Conv_7/Conv_0"
+
+
+def _attention_names(position: bool):
+    if position:
+        for name in ("query_conv", "key_conv", "value_conv"):
+            yield "conv", name, name
+    yield "scalar", "gamma", "gamma"
+
+
+def name_table(num_scales: int = 3, extra_head_scales: int = 0) -> Iterator[tuple[str, str, str]]:
+    """(kind, torch module name, flax path) for every mapped layer of the
+    joint model.
+
+    ``kind`` is "conv", "linear", "bn" or "scalar" (a parameter leaf of its
+    own, torch name = flax path). Convs with a bias in the flax tree map
+    their bias too.
+    """
+    yield from _fpyramid_names()
+    yield from _pwc_names()
+    yield from _pose_net_names()
+    yield from _depth_net_names(num_scales, extra_head_scales)
+
+
+def model_table(model: torch.nn.Module) -> list[tuple[str, str, str]]:
+    """The table of ``model``: the joint model, ``TriangulationPoseModel``
+    and ``FlowPoseModel`` by the sub-networks they hold, or one of the two
+    attention modules."""
+    if hasattr(model, "gamma"):
+        return list(_attention_names(hasattr(model, "query_conv")))
+    groups = {"fpyramid": _fpyramid_names, "pwc_model": _pwc_names,
+              "pose_net": _pose_net_names, "flow_pose_net": _flow_pose_net_names}
+    table = [row for name, group in groups.items() if hasattr(model, name) for row in group()]
+    if hasattr(model, "depth_net"):
+        dec = model.depth_net.decoder
+        table += _depth_net_names(dec.num_scales, len(dec.dispconvs) - dec.num_scales)
+    if not table:
+        raise TypeError(f"no JAX weight table for {type(model).__name__}")
+    return table
 
 
 def _leaf_paths(tree: Mapping, prefix: str) -> set:
@@ -107,46 +149,58 @@ def _leaf_paths(tree: Mapping, prefix: str) -> set:
         if isinstance(v, Mapping):
             out |= _leaf_paths(v, p)
         else:
-            out.add(p.rsplit("/", 1)[0])
+            out.add(p)
     return out
 
 
-def jax_state_dict(params: Mapping, batch_stats: Mapping, num_scales: int = 3,
-                   extra_head_scales: int = 0) -> dict:
-    """The port's state_dict (name -> f32 tensor) from the JAX variables."""
+def _state_dict(params: Mapping, batch_stats: Mapping, table) -> dict:
+    """The state_dict of ``table``'s layers from the JAX variables; every
+    leaf of the tree must be used."""
     used: set = set()
+    trees = {"params": params, "batch_stats": batch_stats}
     sd = {}
 
-    def t(a, perm=None):
-        a = np.asarray(a, np.float32)
+    def node(prefix, path):
+        n = trees[prefix]
+        for part in path.split("/"):
+            n = n[part]
+        return n
+
+    def take(prefix, path, perm=None):
+        used.add(f"{prefix}/{path}")
+        a = np.asarray(node(prefix, path), np.float32)
         return torch.from_numpy(np.array(a if perm is None else a.transpose(perm)))
 
-    for kind, name, path in name_table(num_scales, extra_head_scales):
-        node = _node(params, path, used, "params")
-        if kind == "bn":
-            sd[f"{name}.weight"] = t(node["scale"])
-            sd[f"{name}.bias"] = t(node["bias"])
-            stats = _node(batch_stats, path, used, "batch_stats")
-            sd[f"{name}.running_mean"] = t(stats["mean"])
-            sd[f"{name}.running_var"] = t(stats["var"])
-            continue
-        sd[f"{name}.weight"] = t(node["kernel"], (3, 2, 0, 1) if kind == "conv" else (1, 0))
-        if "bias" in node:
-            sd[f"{name}.bias"] = t(node["bias"])
+    for kind, name, path in table:
+        if kind == "scalar":
+            sd[name] = take("params", path)
+        elif kind == "bn":
+            sd[f"{name}.weight"] = take("params", f"{path}/scale")
+            sd[f"{name}.bias"] = take("params", f"{path}/bias")
+            sd[f"{name}.running_mean"] = take("batch_stats", f"{path}/mean")
+            sd[f"{name}.running_var"] = take("batch_stats", f"{path}/var")
+        else:
+            perm = (3, 2, 0, 1) if kind == "conv" else (1, 0)
+            sd[f"{name}.weight"] = take("params", f"{path}/kernel", perm)
+            if "bias" in node("params", path):
+                sd[f"{name}.bias"] = take("params", f"{path}/bias")
     unused = (_leaf_paths(params, "params") | _leaf_paths(batch_stats, "batch_stats")) - used
     if unused:
         raise ValueError(f"unmapped JAX variables: {sorted(unused)[:8]}")
     return sd
 
 
-def _heads(model: torch.nn.Module) -> tuple[int, int]:
-    dec = model.depth_net.decoder
-    return dec.num_scales, len(dec.dispconvs) - dec.num_scales
+def jax_state_dict(params: Mapping, batch_stats: Mapping, num_scales: int = 3,
+                   extra_head_scales: int = 0) -> dict:
+    """The joint model's state_dict (name -> f32 tensor) from the JAX variables."""
+    return _state_dict(params, batch_stats, name_table(num_scales, extra_head_scales))
 
 
-def load_jax_variables(model: torch.nn.Module, params: Mapping, batch_stats: Mapping) -> None:
-    """Load the JAX package's ``params`` / ``batch_stats`` into ``model`` strictly."""
-    sd = jax_state_dict(params, batch_stats, *_heads(model))
+def load_jax_variables(model: torch.nn.Module, params: Mapping,
+                       batch_stats: Mapping | None = None) -> None:
+    """Load the JAX package's ``params`` / ``batch_stats`` into ``model``
+    (any model of ``model_table``) strictly."""
+    sd = _state_dict(params, batch_stats or {}, model_table(model))
     model.load_state_dict(sd, strict=True)
 
 
@@ -157,21 +211,24 @@ def jax_variables(model: torch.nn.Module) -> tuple[dict, dict]:
     params: dict = {}
     stats: dict = {}
 
-    def put(tree, path, leaf, value):
+    def put(tree, path, value):
+        *parents, leaf = path.split("/")
         node = tree
-        for part in path.split("/"):
+        for part in parents:
             node = node.setdefault(part, {})
         node[leaf] = value.detach().float().cpu().numpy()
 
-    for kind, name, path in name_table(*_heads(model)):
-        if kind == "bn":
-            put(params, path, "scale", sd[f"{name}.weight"])
-            put(params, path, "bias", sd[f"{name}.bias"])
-            put(stats, path, "mean", sd[f"{name}.running_mean"])
-            put(stats, path, "var", sd[f"{name}.running_var"])
-            continue
-        w = sd[f"{name}.weight"]
-        put(params, path, "kernel", w.permute(2, 3, 1, 0) if kind == "conv" else w.t())
-        if f"{name}.bias" in sd:
-            put(params, path, "bias", sd[f"{name}.bias"])
+    for kind, name, path in model_table(model):
+        if kind == "scalar":
+            put(params, path, sd[name])
+        elif kind == "bn":
+            put(params, f"{path}/scale", sd[f"{name}.weight"])
+            put(params, f"{path}/bias", sd[f"{name}.bias"])
+            put(stats, f"{path}/mean", sd[f"{name}.running_mean"])
+            put(stats, f"{path}/var", sd[f"{name}.running_var"])
+        else:
+            w = sd[f"{name}.weight"]
+            put(params, f"{path}/kernel", w.permute(2, 3, 1, 0) if kind == "conv" else w.t())
+            if f"{name}.bias" in sd:
+                put(params, f"{path}/bias", sd[f"{name}.bias"])
     return params, stats
