@@ -424,3 +424,36 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda):
         tss.ssim_forward(f.float(), f.float().cpu())
     with pytest.raises(TypeError):
         tsp.splat_mass(torch.zeros((1, 4, 4, 2), dtype=torch.float16, device=cuda))
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,s", [
+    (6, 64, 128, 3, 64, 7, 2), (6, 16, 32, 64, 128, 3, 2), (6, 16, 32, 64, 64, 3, 1),
+    (6, 16, 32, 64, 128, 1, 2), (1, 2, 4, 256, 512, 3, 2),
+], ids=["stem", "3x3_s2", "3x3", "1x1_s2", "few_rows"])
+def test_int8_conv_card_accumulators_equal_the_exact_version(cuda, b, h, w, cin, cout, k, s):
+    """``torch._int_mm`` on int8 im2col (K padded to a multiple of 8, fewer
+    than 17 rows padded) gives the int64 version's accumulators exactly,
+    and the int8 conv's output and STE gradients on the card match the
+    same conv's on the CPU (its plain accumulators): the output bit-equal,
+    the gradients to 1e-5 of their max-abs (cuDNN against oneDNN)."""
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import int8_conv as ti8
+
+    gen = torch.Generator().manual_seed(k * 10 + s)
+    x = torch.randn(b, h, w, cin, generator=gen)
+    wt = torch.randn(cout, cin, k, k, generator=gen) * 0.1
+    xq, _ = ti8.quant_act(x)
+    wq, _ = ti8.quant_weight(wt)
+    p = (k - 1) // 2
+    before = ti8.INT_MM.launches
+    acc = ti8.conv_i32(xq.to(cuda), wq.to(cuda), s, p)
+    assert ti8.INT_MM.launches == before + 1 and acc.dtype == torch.int32
+    assert torch.equal(acc.cpu(), ti8.conv_i32_plain(xq, wq, s, p))
+    res = []
+    for dev in (cuda, torch.device("cpu")):
+        xt, wtt = x.to(dev).requires_grad_(), wt.to(dev).requires_grad_()
+        y = ti8.int8_conv(xt, wtt, s, p)
+        y.backward(torch.ones_like(y))
+        res.append([t.detach().cpu() for t in (y, xt.grad, wtt.grad)])
+    assert torch.equal(res[0][0], res[1][0])
+    for a, b_ in zip(res[0][1:], res[1][1:]):
+        assert (a - b_).abs().max() <= 1e-5 * b_.abs().max()

@@ -137,6 +137,7 @@ _OPTION_LOSS = {
     "enable_eight_point": ("geom", "loss_eight_point"),
     "enable_depth_consis": ("geom", "loss_depth_consis"),
     "loss_base_scale": ("geom", "loss_total"),
+    "encoder_int8": ("depth", "loss_depth_pixel"),
 }
 
 
@@ -152,15 +153,11 @@ _OPTION_LOSS = {
     ],
 )
 def test_unported_options_raise(flag):
-    """``encoder_int8`` is not ported and raises. The name is kept from when
-    the other five raised too: now each builds and trains. Two CPU steps on
-    one batch with the same draws: the option's loss is finite and non-zero,
-    and the first step moved it (through the parameters alone)."""
+    """The name is kept from when these six options raised: now each builds
+    and trains. Two CPU steps on one batch with the same draws: the
+    option's loss is finite and non-zero, and the first step moved it
+    (through the parameters alone)."""
     (name,) = flag
-    if name == "encoder_int8":
-        with pytest.raises(NotImplementedError):
-            JointModel(_cfg(**flag))
-        return
     mode, loss = _OPTION_LOSS[name]
     cfg = _cfg(mode=mode, **flag)
     model, opt = init_state(cfg, "cpu")
@@ -174,17 +171,18 @@ def test_unported_modes_raise():
     """What raises at build time (the test keeps the name it had when only
     geom mode was ported): all three modes build, with depth consistency and
     the loss base scale too; an unknown mode or kernel-selecting value, or a
-    loss base scale past the decoder's four flow scales, raises ValueError;
-    ``encoder_int8`` raises NotImplementedError in every mode."""
+    loss base scale past the decoder's four flow scales, or ``encoder_int8``
+    with a packed encoder segment (exclusive in the JAX package too), raises
+    ValueError; ``encoder_int8`` builds in every mode."""
     for mode in ("flow", "depth", "geom"):
         assert build_model(_cfg(mode=mode), "cpu").cfg.mode == mode
         JointModel(_cfg(mode=mode, enable_depth_consis=True))
         JointModel(_cfg(mode=mode, loss_base_scale=1))
-        with pytest.raises(NotImplementedError):
-            JointModel(_cfg(mode=mode, encoder_int8=True))
+        JointModel(_cfg(mode=mode, encoder_int8=True))
     for bad in (
         {"mode": "stereo"}, {"flow_occ_impl": "splat_cuda"}, {"warp_impl": "windowed"},
         {"pwc_corr": "cudnn"}, {"loss_base_scale": 2}, {"loss_base_scale": -1},
+        {"encoder_int8": True, "packed_encoder": True}, {"encoder_int8": True, "packed_stem": True},
     ):
         with pytest.raises(ValueError):
             JointModel(_cfg(**bad))

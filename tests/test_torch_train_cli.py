@@ -1,8 +1,8 @@
 """The port's training CLI on the CPU at 64x128, b2, f32, on a synthetic
 prepared dataset: a geom run with saves, a resume and mask dumps; the flow
 mode's occlusion schedule; the flow -> depth -> geom hand-off; the
-interleaved evaluation on synthetic KITTI trees; and the paths that are not
-ported yet, which raise."""
+interleaved evaluation on synthetic KITTI trees; and the data-parallel
+settings that one process cannot run, which raise."""
 
 import json
 import os
@@ -262,13 +262,18 @@ def test_flow_mode_runs_no_depth_or_pose_eval(prepared, eval_trees, tmp_path, ca
     {"enable_pnp": True},
 ], ids=lambda o: "-".join(o))
 def test_unported_paths_raise(prepared, tmp_path, overrides):
-    """Data parallel raises NotImplementedError before a step. The name is
-    kept from when the loss base scale and the PnP loss raised too: now they
-    train, and two steps of the CLI save finite losses with the option's
-    loss non-zero."""
+    """The paths that raised NotImplementedError while data parallel and
+    the loss options were not ported (the name is kept). In one process,
+    ``num_devices`` 2 names a group of two ranks that does not exist, and
+    ``num_processes`` 2 without a coordinator and a process id cannot join
+    one: both raise ValueError before a step. A coordinator address alone
+    is ignored, as in the JAX package (it takes ``num_processes`` > 1), and
+    the loss base scale and the PnP loss train: two steps of the CLI save
+    finite losses with the option's loss non-zero."""
     cfg = _cfg(prepared, tmp_path, num_iterations=2, **overrides)
-    if "loss_base_scale" not in overrides and "enable_pnp" not in overrides:
-        with pytest.raises(NotImplementedError, match="not ported"):
+    if "num_devices" in overrides or "num_processes" in overrides:
+        match = "torchrun" if "num_devices" in overrides else "coordinator_address"
+        with pytest.raises(ValueError, match=match):
             cli.train(cfg, device="cpu")
         assert not (tmp_path / "ckpt").exists()
         return

@@ -3,7 +3,10 @@
 Port of the JAX package's ``models/depth_net.py`` in its logical (unpacked)
 form. The JAX flags ``packed_convs`` / ``packed_encoder`` / ``packed_stem``
 only change TPU layouts over an identical parameter tree; here they are
-accepted and change nothing. ``encoder_int8`` is not ported.
+accepted and change nothing. ``encoder_int8`` runs every encoder conv (the
+7x7 stem, both 3x3 convs of each BasicBlock, the 1x1 downsample) in int8
+with a straight-through backward (``ops/int8_conv.py``), over the same
+parameters.
 
 Input normalisation (x - 0.45) / 0.225; sigmoid disparity heads at
 ``num_scales`` scales (and ``extra_head_scales`` coarser ones for the loss
@@ -26,9 +29,9 @@ _ENC_CH = (64, 64, 128, 256, 512)
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, cin, cout, stride=1, dtype=torch.float32):
+    def __init__(self, cin, cout, stride=1, dtype=torch.float32, int8=False):
         super().__init__()
-        kw = dict(bias=False, init="kaiming_out", dtype=dtype)
+        kw = dict(bias=False, init="kaiming_out", dtype=dtype, int8=int8)
         self.conv1 = Conv(cin, cout, 3, stride, 1, **kw)
         self.bn1 = BatchNorm(cout, dtype=dtype)
         self.conv2 = Conv(cout, cout, 3, 1, 1, **kw)
@@ -47,15 +50,15 @@ class BasicBlock(nn.Module):
 
 
 class ResNet18(nn.Module):
-    def __init__(self, dtype=torch.float32):
+    def __init__(self, dtype=torch.float32, int8=False):
         super().__init__()
-        self.conv1 = Conv(3, 64, 7, 2, 3, bias=False, init="kaiming_out", dtype=dtype)
+        self.conv1 = Conv(3, 64, 7, 2, 3, bias=False, init="kaiming_out", dtype=dtype, int8=int8)
         self.bn1 = BatchNorm(64, dtype=dtype)
         cin = 64
         for li, cout in enumerate((64, 128, 256, 512), start=1):
             stride = 1 if li == 1 else 2
             layer = nn.Sequential(
-                BasicBlock(cin, cout, stride, dtype), BasicBlock(cout, cout, 1, dtype)
+                BasicBlock(cin, cout, stride, dtype, int8), BasicBlock(cout, cout, 1, dtype, int8)
             )
             setattr(self, f"layer{li}", layer)
             cin = cout
@@ -72,9 +75,9 @@ class ResNet18(nn.Module):
 
 
 class ResnetEncoder(nn.Module):
-    def __init__(self, dtype=torch.float32):
+    def __init__(self, dtype=torch.float32, int8=False):
         super().__init__()
-        self.encoder = ResNet18(dtype)
+        self.encoder = ResNet18(dtype, int8)
 
     def forward(self, img):
         return self.encoder(img)
@@ -142,12 +145,11 @@ class DepthNet(nn.Module):
                  packed_stem=False, encoder_int8=False, dtype=torch.float32,
                  extra_head_scales=0):
         super().__init__()
+        if encoder_int8 and (packed_encoder or packed_stem):
+            # as the JAX package's encoder: both rewrite the same convs
+            raise ValueError("encoder int8 and packed modes are exclusive")
         del packed, packed_encoder, packed_stem  # TPU layouts, same math
-        if encoder_int8:
-            raise NotImplementedError(
-                "encoder_int8 is not ported (ROADMAP.md queue 1, 'The rest')"
-            )
-        self.encoder = ResnetEncoder(dtype)
+        self.encoder = ResnetEncoder(dtype, encoder_int8)
         self.decoder = DepthDecoder(num_scales, dtype, extra_head_scales)
 
     def forward(self, img, min_scale: int = 0):

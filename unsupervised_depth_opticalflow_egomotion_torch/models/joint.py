@@ -20,7 +20,8 @@ below the input, on the depth net's extra coarse heads) and the sampled
 geometric losses of geom mode (triangulation, PnP and RANSAC-F eight-point
 consistency). One sampled match set feeds all three, and the caller draws
 its indices (``draw_samples``), so the card and the CPU can be given the same
-draws. ``encoder_int8`` is not ported (``models/depth_net.py``).
+draws. ``encoder_int8`` runs the depth encoder's convs in int8
+(``models/depth_net.py``, ``ops/int8_conv.py``).
 
 NOTE (preserved reference behaviour): the sigmoid disp pyramid is used
 directly as "depth" in the reconstruction.

@@ -18,8 +18,11 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.int8_conv import int8_conv
 
 
 class Conv(nn.Module):
@@ -28,15 +31,19 @@ class Conv(nn.Module):
     ``init`` picks the reference's effective initialisation: "torch" =
     Conv2d's default kaiming-uniform(a=sqrt(5)), i.e. U(+-1/sqrt(fan_in)),
     with zero bias; "kaiming_out" = kaiming-normal(fan_out) (ResNet).
+    ``int8`` runs the forward in int8 with a straight-through backward
+    (``ops/int8_conv.py``; no bias, no dilation).
     """
 
     def __init__(self, cin, cout, kernel=3, stride=1, padding=1, dilation=1,
-                 bias=True, init="torch", dtype=torch.float32):
+                 bias=True, init="torch", dtype=torch.float32, int8=False):
         super().__init__()
+        if int8 and (bias or dilation != 1):
+            raise ValueError("an int8 conv takes no bias and no dilation")
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.stride, self.padding, self.dilation = stride, padding, dilation
-        self.init, self.dtype = init, dtype
+        self.init, self.dtype, self.int8 = init, dtype, int8
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -52,6 +59,8 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
+        if self.int8:
+            return int8_conv(x.to(dt), self.weight, self.stride, self.padding)
         y = F.conv2d(
             x.to(dt).permute(0, 3, 1, 2),
             self.weight.to(dt),
@@ -101,6 +110,25 @@ class ReflectConv3x3(nn.Module):
         return self.conv(x.permute(0, 2, 3, 1))
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over a process group, whose backward sums the cotangent over
+    the group: each rank's sums feed every rank's statistics, so each
+    rank's gradient of them is the sum of every rank's cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the channel (last) axis with flax's semantics.
 
@@ -109,6 +137,13 @@ class BatchNorm(nn.Module):
     ra = 0.9 * ra + 0.1 * stat, for the variance with the biased batch
     variance as flax does (torch's BatchNorm2d uses the unbiased one).
     eps 1e-5. Normalization in f32, result in the compute dtype.
+
+    With a process ``group`` (``parallel/mesh.sync_batch_norm``) the train
+    statistics are those of the group's global batch, as a ``jit`` over
+    the JAX package's mesh computes them: the f32 per-channel sums of x and
+    x^2 and the element count go through one all-reduce a layer, which
+    carries the gradient. Every rank then updates the same running
+    statistics.
     """
 
     def __init__(self, c, momentum=0.9, eps=1e-5, dtype=torch.float32):
@@ -118,6 +153,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
         self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.group = None
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -127,12 +163,23 @@ class BatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
+    def _global_stats(self, xf, dims):
+        c = xf.shape[-1]
+        sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                          xf.new_full((1,), xf.numel() // c)])
+        sums = _AllReduceSum.apply(sums, self.group)
+        mean = sums[:c] / sums[-1]
+        return mean, torch.clamp(sums[c:-1] / sums[-1] - mean * mean, min=0.0)
+
     def forward(self, x):
         if self.training:
             xf = x.float()
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            if self.group is None:
+                mean = xf.mean(dims)
+                var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            else:
+                mean, var = self._global_stats(xf, dims)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean)

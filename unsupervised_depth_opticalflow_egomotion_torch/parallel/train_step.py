@@ -12,9 +12,17 @@ modes (``cfg.mode``: flow | depth | geom), with the same four entry points:
   JAX package's substring labels (pwc/fpyramid, depth, pose); frozen
   parameters still run forward and their BatchNorm statistics still update.
 - ``init_state(cfg, device)``: the model and its optimizer.
-- ``make_train_step(model, cfg, optimizer)``: one step on a batch
-  ``(images, K_ms, K_inv_ms)``; returns the metrics (the mean of every loss
-  in the pack and the weighted ``loss_total``).
+- ``make_train_step(model, cfg, optimizer, group=None)``: one step on a
+  batch ``(images, K_ms, K_inv_ms)``; returns the metrics (the mean of
+  every loss in the pack and the weighted ``loss_total``).
+
+Data parallel (``group``, a ``torch.distributed`` process group; the JAX
+step under a mesh, train_step.py:270-277): each rank steps its shard of the
+global batch on its own replica. BatchNorm takes the global batch's
+statistics, the gradients are averaged over the ranks before the clip (as
+optax clips the global gradient), and the metrics returned are the world's
+means (``parallel/mesh.py``). The sampled losses' draws are the global
+batch's, of which each rank keeps its own rows.
 
 The geom objective's sampled losses (``enable_triangle`` / ``enable_pnp`` /
 ``enable_eight_point``) draw random indices every step. The JAX CLI splits
@@ -43,6 +51,7 @@ from ..config import Config, loss_weights
 from ..models.joint import JointModel, needs_samples
 from ..models.layers import init_weights
 from ..utils.device import resolve_device
+from .mesh import all_reduce_gradients, all_reduce_metrics, rank_and_world, sync_batch_norm
 
 
 def build_model(cfg: Config, device=None) -> JointModel:
@@ -101,15 +110,18 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
 
 
-def step_draws(model: JointModel, step: int, batch) -> dict | None:
+def step_draws(model: JointModel, step: int, batch, rank: int = 0, world: int = 1) -> dict | None:
     """Step ``step``'s index draws (``JointModel.draw_samples``) on the
     batch's device, copied from pinned memory without blocking; None when
-    the objective samples nothing."""
+    the objective samples nothing. ``batch`` is rank ``rank``'s shard of a
+    global batch ``world`` times its size: the draws are the global batch's
+    (as one process draws them), and the rank keeps its own rows."""
     images = batch[0]
-    h = images.shape[1] // 3
-    draws = model.draw_samples(
-        step_generator(model.cfg.seed, step), images.shape[0], (h, images.shape[2])
-    )
+    h, b = images.shape[1] // 3, images.shape[0]
+    gen = step_generator(model.cfg.seed, step)
+    draws = model.draw_samples(gen, b * world, (h, images.shape[2]))
+    if draws is not None and world > 1:
+        draws = {k: v[rank * b:(rank + 1) * b] for k, v in draws.items()}
     if draws is None or images.device.type != "cuda":
         return draws
     return {k: v.pin_memory().to(images.device, non_blocking=True) for k, v in draws.items()}
@@ -124,19 +136,23 @@ def _forward(model: JointModel, cfg: Config, batch, draws=None):
     return model.forward_geom(*batch, draws=draws)[0]
 
 
-def make_train_step(model: JointModel, cfg: Config, optimizer: torch.optim.Optimizer):
+def make_train_step(model: JointModel, cfg: Config, optimizer: torch.optim.Optimizer,
+                    group=None):
     """One training step of ``cfg.mode``: ``step(batch, step=None) ->
     metrics`` (device scalars). ``step`` (the number of steps taken before
     this one) seeds the draws of the sampled geom losses, and must be given
-    when they are on."""
+    when they are on. With a process ``group``, ``batch`` is this rank's
+    shard of the global batch, and the step is the global batch's."""
     weights = loss_weights(cfg)
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    params = [p for g in optimizer.param_groups for p in g["params"]]
     sampled = needs_samples(cfg)
+    rank, world = rank_and_world(group)
+    sync_batch_norm(model, group)
 
     def train_step(batch, step=None):
         if sampled and step is None:
             raise ValueError("the sampled geom losses need the step number to draw from")
-        draws = step_draws(model, step, batch) if sampled else None
+        draws = step_draws(model, step, batch, rank, world) if sampled else None
         loss_pack = _forward(model, cfg, batch, draws)
         total = torch.zeros((), device=batch[0].device)
         metrics = {}
@@ -147,6 +163,9 @@ def make_train_step(model: JointModel, cfg: Config, optimizer: torch.optim.Optim
         metrics["loss_total"] = total.detach()
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if group is not None:
+            all_reduce_gradients(params, group)
+            metrics = all_reduce_metrics(metrics, group)
         if cfg.grad_clip_norm > 0:
             clip_by_global_norm(params, cfg.grad_clip_norm)
         optimizer.step()

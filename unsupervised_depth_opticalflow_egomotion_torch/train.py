@@ -1,6 +1,8 @@
-"""Training CLI of the port: flow / depth / geom modes on one CUDA card.
+"""Training CLI of the port: flow / depth / geom modes on CUDA cards.
 
     python -m unsupervised_depth_opticalflow_egomotion_torch.train \\
+        -c configs/kitti_geom.yaml --mode geom --model_dir ckpt/
+    torchrun --nproc_per_node <cards> -m unsupervised_depth_opticalflow_egomotion_torch.train \\
         -c configs/kitti_geom.yaml --mode geom --model_dir ckpt/
 
 The flags and semantics of the repository's ``train.py`` (the JAX package's
@@ -28,10 +30,23 @@ CLI, train.py:49-332):
 - step-indexed checkpoints in ``<model_dir>/ckpt``, ``log.pkl`` and
   ``config.json`` in ``--model_dir``.
 
+Data parallel (train.py:126-136 of the JAX CLI): one process per card,
+each a rank of a ``torch.distributed`` group (``parallel/mesh.py``), joined
+under torchrun or through the JAX flags ``coordinator_address`` /
+``num_processes`` / ``process_id``. ``num_devices`` 0 means every rank of
+the group; N > 0 must equal the group's size. ``batch_size`` is global and
+must divide by the number of ranks; each rank reads its stride of
+``train.txt`` at ``batch_size // world`` items a step. Rank 0 alone prints,
+logs, writes ``config.json``, the checkpoints and the mask dumps, and runs
+the interleaved eval; the other ranks wait at a barrier meanwhile. Every
+rank restores the same checkpoint on ``--resume``, and the run checks that
+all ranks start from equal parameters and buffers. Started without torchrun
+on a host with more than one card, and with ``num_devices`` 0, it raises
+rather than train on one card.
+
 It runs on the card and raises without one; ``train(cfg, device="cpu")``
-runs the plain versions of the kernels on the CPU. Not ported yet, and
-refused with ``NotImplementedError``: more than one device or process
-(ROADMAP.md queue 1, item 7).
+runs the plain versions of the kernels on the CPU (under a gloo group made
+by the caller, one rank of a CPU data-parallel run).
 """
 
 from __future__ import annotations
@@ -41,14 +56,16 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import eval_tasks
 from .config import Config, load_config
 from .data import KittiOdoPrep, KittiPreparedDataset, KittiRawPrep, NyuPrep, make_loader
 from .evaluation import load_gt_flow_kitti, load_gt_mask
-from .parallel import build_model, init_state, make_train_step, to_device_batch
+from .parallel import build_model, distributed_init, init_state, make_train_step, to_device_batch
+from .parallel.mesh import check_replicas, rank_and_world, under_torchrun, world_group
 from .parallel.train_step import step_draws
-from .utils import CheckpointManager, MetricLogger, graft_params, opt_layout_tag, resolve_device
+from .utils import CheckpointManager, MetricLogger, graft_params, opt_layout_tag
 from .visualize import dump_mask_pack
 
 
@@ -78,13 +95,35 @@ def prepare_data(cfg: Config) -> str:
     return data_dir
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise for what the JAX CLI would do and the port cannot yet."""
-    if cfg.num_devices > 1 or cfg.num_processes > 1 or cfg.coordinator_address:
-        raise NotImplementedError(
-            "data parallel training over more than one device or process is not "
-            "ported yet (ROADMAP.md queue 1, item 7); the port trains on one card"
+def refuse_one_of_many_cards(cfg: Config, device) -> None:
+    """``num_devices`` 0 means every card, as in the JAX CLI: started as one
+    process (no torchrun, no group, ``num_processes`` <= 1) on a host with
+    more than one card, raise rather than train on one of them."""
+    if (cfg.num_devices or cfg.num_processes > 1 or under_torchrun() or dist.is_initialized()
+            or torch.device("cuda" if device is None else device).type != "cuda"):
+        return
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        raise RuntimeError(
+            f"num_devices=0 trains on every card, and this host has {cards}: launch one "
+            f"process per card with `torchrun --nproc_per_node {cards} -m "
+            "unsupervised_depth_opticalflow_egomotion_torch.train ...`, or pass "
+            "`--num_devices 1` to train on one card"
         )
+
+
+def check_world(cfg: Config, world: int) -> int:
+    """The per-rank batch; raises unless ``num_devices`` (0: all) matches the
+    group and the global batch divides by it."""
+    if cfg.num_devices and cfg.num_devices != world:
+        raise ValueError(
+            f"num_devices={cfg.num_devices} but the process group has {world} rank(s), one "
+            f"card each: launch with `torchrun --nproc_per_node {cfg.num_devices}`, or pass "
+            f"`--num_devices {world}` (0 = every rank)"
+        )
+    if cfg.batch_size % world:
+        raise ValueError(f"global batch {cfg.batch_size} must divide by the {world} ranks")
+    return cfg.batch_size // world
 
 
 def load_eval_context(cfg: Config) -> dict:
@@ -148,13 +187,13 @@ def run_interleaved_eval(cfg: Config, infer_fns, logger, step: int, eval_ctx: di
             print(f"[EVAL {step}] pose eval skipped: {e}")
 
 
-def stage_init(model: torch.nn.Module, cfg: Config) -> None:
+def stage_init(model: torch.nn.Module, cfg: Config, say=print) -> None:
     """The staged flow -> depth -> geom init: graft the parameters of each
     stage checkpoint that is set, flow first (train.py:149-156)."""
     for stage_dir in (cfg.flow_pretrained_model, cfg.depth_pretrained_model):
         if stage_dir:
             graft_params(model, CheckpointManager(stage_dir).restore_params())
-            print(f"grafted params from {stage_dir}")
+            say(f"grafted params from {stage_dir}")
 
 
 def dump_masks(eval_model, model, batch, batch_np, out_dir: str, step: int, logger) -> None:
@@ -177,14 +216,28 @@ def dump_masks(eval_model, model, batch, batch_np, out_dir: str, step: int, logg
 
 def train(cfg: Config, device=None):
     """Train ``cfg.mode`` to ``cfg.num_iterations`` steps; returns (model,
-    optimizer, step)."""
-    refuse_unported(cfg)
-    dev = resolve_device(device)
-    # the GT first: before the card's context and the loader's threads exist
-    eval_ctx = load_eval_context(cfg)
+    optimizer, step). Joins the process group first (a no-op for one
+    process, or when the caller made the group)."""
+    refuse_one_of_many_cards(cfg, device)
+    dev = distributed_init(cfg.coordinator_address, cfg.num_processes, cfg.process_id, device)
+    group = world_group()
+    rank, world = rank_and_world(group)
+    local_bsz = check_world(cfg, world)
+    is_main = rank == 0
+    say = print if is_main else (lambda *a, **k: None)
+
+    def barrier():
+        if group is not None:
+            dist.barrier(group)
+
+    # the GT first: before the loader's threads (and, in one process, the
+    # card's context) exist
+    eval_ctx = load_eval_context(cfg) if is_main else {}
     if dev.type == "cuda":
         torch.backends.cudnn.benchmark = True  # one input shape for the whole run
-    print(f"devices: [{dev}]" + (f" {torch.cuda.get_device_name(dev)}" if dev.type == "cuda" else ""))
+    name = f" {torch.cuda.get_device_name(dev)}" if dev.type == "cuda" else ""
+    ranks = f" x {world} ranks ({dist.get_backend(group)})" if group is not None else ""
+    say(f"devices: [{dev}]{name}{ranks}")
 
     model, optimizer = init_state(cfg, dev)
     ckpt = CheckpointManager(os.path.join(cfg.model_dir, "ckpt"))
@@ -194,40 +247,47 @@ def train(cfg: Config, device=None):
     if cfg.resume:
         step = cfg.iter_start if cfg.iter_start > 0 else None
         start_step = ckpt.restore(model, optimizer, step, expect_opt_layout=layout)
-        print(f"resumed from step {start_step}")
+        say(f"resumed from step {start_step}")
     else:
-        stage_init(model, cfg)
-    step_fn = make_train_step(model, cfg, optimizer)
+        stage_init(model, cfg, say)
+    if group is not None:
+        check_replicas(model, group)
+    step_fn = make_train_step(model, cfg, optimizer, group)
 
-    data_dir = prepare_data(cfg)
+    if is_main:
+        prepare_data(cfg)
+    barrier()
     dataset = KittiPreparedDataset(
-        data_dir,
+        cfg.prepared_base_dir,
         num_scales=cfg.num_scales,
         img_hw=cfg.img_hw,
-        num_iterations=(cfg.num_iterations - start_step) * cfg.batch_size,
+        num_iterations=(cfg.num_iterations - start_step) * local_bsz,
         seed=cfg.seed,
         cache_decoded_bytes=cfg.decode_cache_bytes,
         uint8_images=True,
+        shard_id=rank,
+        num_shards=world,
     )
     loader = make_loader(
         dataset,
-        cfg.batch_size,
+        local_bsz,
         impl=cfg.loader_impl,
         shuffle=True,
         num_workers=cfg.num_workers,
         seed=cfg.seed,
     )
-    print(f"input pipeline: {type(loader).__name__}")
+    say(f"input pipeline: {type(loader).__name__}")
 
-    logger = MetricLogger(cfg.model_dir)
-    cfg.dump(os.path.join(cfg.model_dir, "config.json"))
-    # one f32 copy of the model, built once, for the mask dumps and the
-    # interleaved evals
+    logger = eval_model = infer_fns = None
     dumps = cfg.mode == "geom" and cfg.log_interval
-    eval_model = infer_fns = None
-    if dumps or cfg.test_interval:
-        eval_model = build_model(cfg.replace(compute_dtype="float32"), dev).eval()
-        infer_fns = eval_tasks.make_inference_fns(eval_model, dev)
+    if is_main:
+        logger = MetricLogger(cfg.model_dir)
+        cfg.dump(os.path.join(cfg.model_dir, "config.json"))
+        # one f32 copy of the model, built once, for the mask dumps and the
+        # interleaved evals
+        if dumps or cfg.test_interval:
+            eval_model = build_model(cfg.replace(compute_dtype="float32"), dev).eval()
+            infer_fns = eval_tasks.make_inference_fns(eval_model, dev)
 
     # flow-mode occlusion schedule: splat_nn for the bulk of training, the
     # 4-tap bilinear splat for the tail
@@ -246,31 +306,37 @@ def train(cfg: Config, device=None):
             occ_switch = 0
             cfg_tail = cfg.replace(flow_occ_impl="splat")
             model.cfg = cfg_tail  # the forward reads its routes from model.cfg
-            step_fn = make_train_step(model, cfg_tail, optimizer)
-            print(f"[{step}] occlusion schedule: switching to flow_occ_impl=splat")
+            step_fn = make_train_step(model, cfg_tail, optimizer, group)
+            say(f"[{step}] occlusion schedule: switching to flow_occ_impl=splat")
         if cfg.test_interval and step % cfg.test_interval == 0 and step > start_step:
-            eval_model.load_state_dict(model.state_dict())
-            run_interleaved_eval(cfg, infer_fns, logger, step, eval_ctx)
+            if is_main:
+                eval_model.load_state_dict(model.state_dict())
+                run_interleaved_eval(cfg, infer_fns, logger, step, eval_ctx)
+            barrier()
 
         batch = to_device_batch(batch_np, dev)
         metrics = step_fn(batch, step)
         step += 1
 
-        if step % cfg.log_interval == 0:
+        if step % cfg.log_interval == 0 and is_main:
             # the only host copy of the metrics: a sync at log steps alone
             scalars = {k: float(v) for k, v in metrics.items()}
             logger.add_scalars(step, scalars)
             logger.print_losses(step, cfg.num_iterations, scalars)
-        if dumps and step % (10 * cfg.log_interval) == 0:
+        if dumps and step % (10 * cfg.log_interval) == 0 and is_main:
             dump_masks(eval_model, model, batch, batch_np,
                        os.path.join(cfg.model_dir, "images"), step, logger)
         if cfg.save_interval and step % cfg.save_interval == 0:
-            ckpt.save(step, model, optimizer, meta=ckpt_meta)
-            logger.dump()
+            if is_main:
+                ckpt.save(step, model, optimizer, meta=ckpt_meta)
+                logger.dump()
+            barrier()
 
-    ckpt.save(step, model, optimizer, meta=ckpt_meta)
-    logger.close()
-    print("training done")
+    if is_main:
+        ckpt.save(step, model, optimizer, meta=ckpt_meta)
+        logger.close()
+    barrier()
+    say("training done")
     return model, optimizer, step
 
 
@@ -308,7 +374,11 @@ def main(argv=None):
     overrides = {k: v for k, v in vars(args).items() if k != "config_file"}
     cfg = load_config(args.config_file, **overrides)
     os.makedirs(cfg.model_dir, exist_ok=True)
-    train(cfg)
+    try:
+        train(cfg)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
