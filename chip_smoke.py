@@ -40,18 +40,23 @@ uses card 0). Phases, in order; any failure exits non-zero:
    depth net's gradient to INT8_GRAD_TOL); and the geom, flow ("splat")
    and depth steps at loss_base_scale=1.
 5. train: the train steps at b8 256x832 bf16 on uint8 frames. The geom step
-   under the default Config (warm-up, then timed steps, a frames/s line in
-   bench.py's shape, a short profile of one step); the same step under
-   ssim_impl="xla" (timed in the same call, for comparison); the flow step
-   under flow_occ_impl="splat" (timed, its own frames/s line and profile)
-   and under the default "splat_nn"; the depth step (timed briefly, and
-   profiled); the geom step under warp_impl="pallas", pwc_corr="pallas";
+   under the default Config, the flow step under flow_occ_impl="splat" and
+   the depth step through the bench module's ``run`` (bench.py's settings:
+   a FLOP-count step, warm-up, 20 timed steps; bench.py's line with
+   flops_per_step and mfu, and a short profile of one step at the end);
+   the geom step under ssim_impl="xla" (timed in the same call, for
+   comparison) and again through ``run`` without and with the FLOP-count
+   step, in turns; the geom step under warp_impl="pallas" (bench.py's
+   BENCH_WARP_IMPL=pallas: its FLOP count must be the default's); the flow
+   step under the default "splat_nn"; the geom step under warp_impl="pallas",
+   pwc_corr="pallas";
    the geom step with the four optional losses (w_8point 0.001) and at
    loss_base_scale=1 (timed, a frames/s line each and their ratio to the
-   default geom step's); the geom step under encoder_int8 (timed, a
-   frames/s line and its ratio; 20 int8 GEMMs a step, and the card's int32
-   accumulators of every conv of a forward equal to the exact int64
-   version's); the flow ("splat") and depth steps at
+   default geom step's); the geom step under encoder_int8 through ``run``
+   (bench.py's BENCH_INT8=1: its FLOP count must be the default's, its
+   frames/s ratio; 20 int8 GEMMs a step, and the card's int32 accumulators
+   of every conv of a forward equal to the exact int64 version's); the flow
+   ("splat") and depth steps at
    loss_base_scale=1. Every run zeroes the launch
    counts just before and reads them just after, and checks finite losses,
    moved parameters of the networks the mode trains, bit-equal parameters of
@@ -70,18 +75,22 @@ uses card 0). Phases, in order; any failure exits non-zero:
 7. eval: evaluation and inference from phase 6's geom checkpoint, on
    synthetic trees in KITTI's layouts at 375x1242 (flow 2015 and 2012,
    the raw eigen split, odometry sequence 09), in the same temporary
-   directory: the eval CLI (``python3 -m ...test``) for kitti_flow_2015
-   with submission PNGs, kitti_flow_2012, kitti_depth, kitti_pose with the
-   trajectory export and demo, as subprocesses started together, each of
-   which must exit 0 and print its metrics, and meanwhile one geom run of
-   the training CLI with interleaved eval of all four data sets (its
-   log.pkl must hold the four records); the card's inference against the
-   CPU's on 16 flow pairs, eigen frames and pose snippets, outputs and
-   metrics within EVAL_TOL, and TF32 on against off on the card; each task end to
-   end on the card, the flow task as the eval_flow path of the cost-volume
-   forward (f32, B = 8, 5 launches a batch), and a device-resident batch
-   of each inference. Every launch of the phase must have a signature
-   that phase 3 held. Runs before phase 5's profiles.
+   directory: the eval CLI (``python3 -m ...test``) for kitti_flow_2012,
+   kitti_depth, kitti_pose with the trajectory export and demo, and for
+   kitti_flow_2015 with submission PNGs through this script's
+   ``eval_cli_2015`` mode (``test.main`` with its flow task timed end to
+   end and its launches counted: the eval_flow path of the cost-volume
+   forward, f32, B = 8, 5 launches a batch, every signature one phase 3
+   held), as subprocesses started together, each of which must exit 0 and
+   print its metrics; meanwhile in this process one geom run of the
+   training CLI with interleaved eval of the eigen split and odometry (its
+   log.pkl must hold the two records; the flow sets are the eval CLI's, so
+   no GT is read twice), each task timed where the CLI calls it; then the
+   card's inference against the CPU's on 16 flow pairs (their GT read by
+   the loaders' per-item readers), eigen frames and pose snippets, outputs
+   and metrics within EVAL_TOL, TF32 on against off on the card, and a
+   device-resident batch of each inference. Every launch of the phase must
+   have a signature that phase 3 held. Runs before phase 5's profiles.
 8. synth: ``train_synth_long`` at b8 256x832 bf16 on a generated synthetic
    world (16 train stacks, 4 eval frames) in the same temporary directory:
    flow 20 steps through the occlusion switch, depth 20 steps, geom 20
@@ -90,13 +99,13 @@ uses card 0). Phases, in order; any failure exits non-zero:
    nonzero at every logged geom step and the depth consistency nonzero
    exactly where the depth photometric loss (the same dynamic mask) is, the
    synth_eval records before and after each stage, the mask dump, the
-   checkpoints and the launch signatures of the in-process stages. Runs
-   before phase 5's profiles.
-
+   checkpoints and the launch signatures of the in-process stages. Phase
+   9's subprocesses and phase 10's (a) and (c) run beside it.
 9. two_view: the legacy two-view and flow-to-pose families, from phase 6's
    geom checkpoint and on phase 7's trees, in the same temporary directory:
    the eval CLI's ``--mode two_view`` for kitti_flow_2015 and
-   kitti_flow_2012 (subprocesses; each must exit 0, print its metrics and
+   kitti_flow_2012 (subprocesses, started when phase 7 ends and run beside
+   phase 8; each must exit 0, print its metrics and
    give the EPEs of phase 7's geom-mode task within 1e-5 relative, plus
    half the printed last digit: the same PWC forward); meanwhile
    ``TriangulationPoseModel`` at b8 256x832 f32 (ransac_points 6000, 100
@@ -108,9 +117,10 @@ uses card 0). Phases, in order; any failure exits non-zero:
    relative + 1e-7, gradients stated); and its training at b8 256x832 f32
    with Adam (finite losses, the depth net and FlowPoseNet move, the flow
    nets bit-equal, exact launch counts, a frames/s line). Runs after phase
-   8 and before phase 5's profiles.
+   8; its profile comes last.
 10. dp: data-parallel training (parallel/mesh.py), in the same temporary
-   directory: (a) two ranks of a gloo group on card 0 (NCCL refuses two
+   directory ((a) and (c) spawned when phase 7 ends, beside phase 8; their
+   checks here): (a) two ranks of a gloo group on card 0 (NCCL refuses two
    ranks on one device), spawned, at 64x128 f32 (TF32 off), the global
    batch b4 and the same draws: a geom step with the four optional losses
    (the sampled ones weighted 0, as phase 4 compares the gradient without
@@ -123,13 +133,21 @@ uses card 0). Phases, in order; any failure exits non-zero:
    on phase 6's PNGs at the default Config: exact launch counts, every
    signature held in phase 3, its steady frames/s beside phase 6's, and
    the default geom step in this process without and with a one-process
-   NCCL group, timed in turns (the step's own cost of the group) and then
-   profiled (device time and launches a step); (c) the
+   NCCL group, timed in turns (the step's own cost of the group); (c) the
    training CLI on two spawned gloo ranks on card 0, geom at b8 global, 3
    steps: the logged losses the world means of the ranks' local ones, rank
    0 alone wrote ckpt/, log.pkl and config.json and printed, and the ranks
-   end with bit-equal parameters and buffers. Runs after phase 9 and
-   before phase 5's profiles.
+   end with bit-equal parameters and buffers. Runs after phase 9.
+11. bench: ``python3 -m unsupervised_depth_opticalflow_egomotion_torch.bench``
+   as a subprocess with the default settings: its standard output exactly
+   one JSON line with bench.py's keys, metric bench.py's default string,
+   0 < mfu <= 1, and flops_per_step phase 5's count in this process.
+12. ablate: the step ablation (``ablate_step.run``, the port of
+   scripts/ablate_step.py) at full width, 5 timed calls an entry, every
+   launch's signature one that phase 3 held.
+13. profiles: phase 5's geom, ssim_impl="xla", flow and depth steps and
+   phase 9's FlowPoseModel step, after every timed run (a profiler session
+   slows the host side of later steps).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object with a row per kernel (its launches, times, device
@@ -153,16 +171,7 @@ import sys
 import tempfile
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s by input type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "uint8": 67e12}
 OUT_DIR = os.path.join("chiprun_out", "chip_smoke")
-WARP_FLOPS_PER_PIXEL = 105  # tap weights, 3 values, 6 derivatives, weight sum
-WARP_NOGRAD_FLOPS_PER_PIXEL = 60  # tap weights, 3 values, weight sum
-WARP_BWD_FLOPS_PER_PIXEL = 90  # tap weights, 6 derivatives contracted, weight-sum term
-SSIM_FWD_FLOPS = 70  # per element: five 9-tap sums, the map
-SSIM_BWD_FLOPS = 150  # per element: the statistics again, four planes, four 9-tap sums
-SPLAT_FLOPS_PER_PIXEL = 20
 _TPU = "unsupervised_depth_opticalflow_egomotion_tpu/ops/pallas/"
 # the paths that the kernel table reports, in the order in which a kernel's
 # row picks its path: the train paths of phase 5 (geom_regather is the geom
@@ -250,17 +259,14 @@ def elem_ratio(got, ref, rtol: float, floor: float) -> float:
     return ((got - ref).abs() / (rtol * ref.abs() + floor)).max().item()
 
 
-def valid_shifts(h: int, w: int, md: int) -> int:
-    """Shift-pixel pairs of the cost volume that land inside the frame."""
-    return sum(h - abs(d) for d in range(-md, md + 1)) * sum(
-        w - abs(d) for d in range(-md, md + 1)
-    )
-
-
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The card's least time for the bytes and the operations (the peaks of
+    utils/hardware.py, by the card's name)."""
+    import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch.utils.hardware import bound_ms
+
+    return bound_ms(nbytes, flops, dtype, torch.cuda.get_device_name(0))
 
 
 def path_kernels():
@@ -332,6 +338,7 @@ def phase_kernels():
 
     from unsupervised_depth_opticalflow_egomotion_torch.kernel_times import splat_flow
     from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume as cv
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import flops as fl
     from unsupervised_depth_opticalflow_egomotion_torch.ops import splat as sp
     from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as ss
     from unsupervised_depth_opticalflow_egomotion_torch.ops import warp as wp
@@ -391,7 +398,7 @@ def phase_kernels():
         esz = src.element_size()
         osz = torch.empty((), dtype=odt).element_size()
         nbytes = src.numel() * esz + 8 * n + 4 * n * osz + 24 * n
-        b_ms, b_by = bound(nbytes, WARP_FLOPS_PER_PIXEL * n, "float32")
+        b_ms, b_by = bound(nbytes, fl.warp_gather_flops(n), "float32")
         fwd = lambda: wp.warp_gather(src, ix, iy, odt)  # noqa: E731
         plain_ms = cuda_ms(lambda: wp.warp_gather_plain(src, ix, iy, odt), 3)
         # yardsticks, never used by the port: grid_sample of an f32 NCHW copy
@@ -418,7 +425,7 @@ def phase_kernels():
         got_n = wp.warp_gather_nograd(src, ix, iy, odt)
         err_n = max(max_err(got_n[0], want[0]), max_err(got_n[1], want[1]))
         b_ms, b_by = bound(src.numel() * esz + 8 * n + 4 * n * osz,
-                           WARP_NOGRAD_FLOPS_PER_PIXEL * n, "float32")
+                           fl.warp_gather_nograd_flops(n), "float32")
         fwd_n = lambda: wp.warp_gather_nograd(src, ix, iy, odt)  # noqa: E731
         rows.append(dict(
             kernel="warp_gather_nograd", shape=f"{sdt}[{b},{h},{w},3]->{str(odt)[6:]}",
@@ -434,7 +441,7 @@ def phase_kernels():
             one_p = wp.warp_gather_backward_plain(src, ix, iy, ga, gb)
             err_b = max(err_b, max_err(one[0], one_p[0]), max_err(one[1], one_p[1]))
         b_ms, b_by = bound(src.numel() * esz + 8 * n + 4 * n * osz + 8 * n,
-                           WARP_BWD_FLOPS_PER_PIXEL * n, "float32")
+                           fl.warp_gather_bwd_flops(n), "float32")
         bwd = lambda: wp.warp_gather_backward(src, ix, iy, g_rgb, g_w)  # noqa: E731
         rows.append(dict(
             kernel="warp_gather_bwd", shape=f"{sdt}[{b},{h},{w},3] g {str(odt)[6:]}",
@@ -478,7 +485,7 @@ def phase_kernels():
         rel = 1e-5 if dt == torch.float32 else 8e-3  # two bf16 ulps of the largest value
         esz = f1.element_size()
         pix = b * h * w
-        macs = b * valid_shifts(h, w, md) * c
+        corr_flops = fl.corr_flops(b, h, w, c, md)  # each of the three kernels
         runs = {
             "corr_fwd": (out, pout, lambda: cv.corr_forward(f1, f2, md),
                          lambda: cv.correlation_plain(f1, f2, md),
@@ -497,7 +504,7 @@ def phase_kernels():
         for name, (k_out, p_out, k_fn, p_fn, nbytes) in runs.items():
             scale = max(p_out.float().abs().max().item(), 1e-6)
             err = max_err(k_out, p_out)
-            b_ms, b_by = bound(nbytes, 2 * macs, dts)
+            b_ms, b_by = bound(nbytes, corr_flops, dts)
             rows.append(dict(
                 kernel=name, shape=f"{dts}[{b},{h},{w},{c}]",
                 # pwc_corr="pallas" and the eval launch the forward kernel only
@@ -561,8 +568,8 @@ def phase_kernels():
         ratio_g = max(elem_ratio(dx_k, dx_p, g_rtol, g_floor), elem_ratio(dy_k, dy_p, g_rtol, g_floor))
         n = x.numel()
         esz = x.element_size()
-        fb_ms, fb_by = bound(3 * n * esz, SSIM_FWD_FLOPS * n, "float32")
-        bb_ms, bb_by = bound(5 * n * esz, SSIM_BWD_FLOPS * n, "float32")
+        fb_ms, fb_by = bound(3 * n * esz, fl.ssim_fwd_flops(n), "float32")
+        bb_ms, bb_by = bound(5 * n * esz, fl.ssim_bwd_flops(n), "float32")
         s_fn = lambda: ss.ssim_forward(x, y)  # noqa: E731
         b_fn = lambda: ss.ssim_backward(x, y, g)  # noqa: E731
         rows.append(dict(
@@ -613,7 +620,7 @@ def phase_kernels():
         n = b * h * w
         # the function's bytes: the flow read once, the mass written once in
         # the flow's type (the kernel's f32 plane is scratch)
-        b_ms, b_by = bound(n * 3 * flow.element_size(), SPLAT_FLOPS_PER_PIXEL * n, "float32")
+        b_ms, b_by = bound(n * 3 * flow.element_size(), fl.splat_mass_flops(n), "float32")
         sp_fn = lambda: sp.splat_mass(flow)  # noqa: E731
         rows.append(dict(
             kernel="splat_mass", shape=f"{dts}[8,{h},{w},2] {kind}",
@@ -650,17 +657,11 @@ def phase_kernels():
     return rows
 
 
-def _batch(b, h, w, dev, seed=0):
-    import numpy as np
-    import torch
+def _batch(b, h, w, dev):
+    """bench.py's batch (the bench module's ``make_batch``) on ``dev``."""
+    from unsupervised_depth_opticalflow_egomotion_torch.bench import make_batch
 
-    rng = np.random.RandomState(seed)
-    images = torch.from_numpy((rng.rand(b, 3 * h, w, 3) * 255).astype(np.uint8))
-    K = np.array([[241.0, 0, w / 2], [0, 245.0, h / 2], [0, 0, 1]], np.float32)
-    K_ms = np.stack([np.diag([1 / 2**s, 1 / 2**s, 1.0]).astype(np.float32) @ K for s in range(3)])
-    K_inv_ms = np.stack([np.linalg.inv(k) for k in K_ms]).astype(np.float32)
-    tile = lambda x: torch.from_numpy(np.tile(x[None], (b, 1, 1, 1)))  # noqa: E731
-    return tuple(t.to(dev) for t in (images, tile(K_ms), tile(K_inv_ms)))
+    return make_batch(b, h, w, dev)
 
 
 NETS = {"flow": ("fpyramid", "pwc_model"), "depth": ("depth_net", "pose_net"),
@@ -791,35 +792,46 @@ def _start(name, overrides, group=None):
     }
 
 
-def _drive(run, per_step, warmup, timed):
-    """``warmup + timed`` train steps of ``run``. The launch counts are zeroed
-    just before and read just after; checks finite losses, moved parameters
-    of the networks the mode trains, bit-equal parameters of the others, and
-    the exact launch count of every kernel (``per_step``: kernel -> launches
-    a step; the others must stay at zero), and that every launch had a
-    signature that phase 3 held against the plain version. Returns
-    (launches, ms per step or None, peak GiB)."""
+def _start_bench(name, settings):
+    """A run of the bench module's step (``bench.Bench``) for ``settings``
+    (``bench.Settings``: the environment settings of ``python -m
+    ...bench``), on the card."""
+    from unsupervised_depth_opticalflow_egomotion_torch import bench
+
+    b = bench.Bench(settings.config())
+    return {
+        "name": name, "cfg": b.cfg, "model": b.model, "step": b.train_step, "batch": b.batch,
+        "bench": b, "metric": settings.metric(),
+        "before": {k: p.detach().clone() for k, p in b.model.named_parameters()},
+    }
+
+
+def _zero_counts():
+    """Every kernel's launch count and signatures zeroed (the card idle
+    first); returns the kernels by name."""
     import torch
 
-    name, step, batch = run["name"], run["step"], run["batch"]
     kernels = {n: k for n, (k, _) in path_kernels().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
         k.seen.clear()
-    for _ in range(warmup):
-        metrics = step(batch, run["steps"])  # the step number seeds the sampled losses' draws
-        run["steps"] += 1
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        metrics = step(batch, run["steps"])
-        run["steps"] += 1
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in kernels.items()}
+    return kernels
 
+
+def _check_run(run, kernels, metrics, per_step, steps, timing) -> dict:
+    """After ``steps`` steps of ``run`` since ``_zero_counts``: finite
+    losses, moved parameters of the networks the mode trains, bit-equal
+    parameters of the others, the exact launch count of every kernel
+    (``per_step``: kernel -> launches a step; the others must stay at
+    zero), and every launch's signature one that phase 3 held against the
+    plain version. Returns the launches."""
+    import torch
+
+    name = run["name"]
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
     values = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in values.values()):
         fail(f"{name}: non-finite losses: {values}")
@@ -832,7 +844,7 @@ def _drive(run, per_step, warmup, timed):
                if not k.startswith(tuple(n + "." for n in trained)) and not torch.equal(v, after[k])]
     if strayed:
         fail(f"{name}: parameters of networks the mode does not train moved: {strayed[:5]}")
-    want = {n: per_step.get(n, 0) * (warmup + timed) for n in kernels}
+    want = {n: per_step.get(n, 0) * steps for n in kernels}
     if launches != want:
         fail(f"{name}: kernel launches {launches}, expected {want}")
     unchecked = {n: sorted(k.seen - CHECKED[n]) for n, k in kernels.items() if k.seen - CHECKED[n]}
@@ -840,11 +852,52 @@ def _drive(run, per_step, warmup, timed):
         fail(f"{name}: launches with signatures (dtype codes, sizes) that the kernels phase "
              f"did not hold against the plain version: {unchecked}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    ms = dt / timed * 1e3 if timed else None
-    timing = f"{timed} timed steps, {ms:.1f} ms/step, " if timed else ""
-    log(f"train {name}: {warmup + timed} steps, {timing}peak memory {peak_gb:.2f} GiB, "
+    log(f"train {name}: {steps} steps, {timing}peak memory {peak_gb:.2f} GiB, "
         f"launches/step {json.dumps(per_step)}, losses {json.dumps(values)}")
-    return launches, ms, peak_gb
+    return launches
+
+
+def _drive(run, per_step, warmup, timed):
+    """``warmup + timed`` train steps of ``run``, checked by ``_check_run``
+    (the launch counts zeroed just before, read just after). Returns
+    (launches, ms per step or None, peak GiB)."""
+    import torch
+
+    step, batch = run["step"], run["batch"]
+    kernels = _zero_counts()
+    for _ in range(warmup):
+        metrics = step(batch, run["steps"])  # the step number seeds the sampled losses' draws
+        run["steps"] += 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        metrics = step(batch, run["steps"])
+        run["steps"] += 1
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3 if timed else None
+    timing = f"{timed} timed steps, {ms:.1f} ms/step, " if timed else ""
+    launches = _check_run(run, kernels, metrics, per_step, warmup + timed, timing)
+    return launches, ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _bench_drive(run, per_step, iters, count_flops):
+    """``bench.run`` of ``run`` (``_start_bench``): the FLOP-count step if
+    ``count_flops``, the warm-up and ``iters`` timed steps, checked by
+    ``_check_run``. Returns (bench.py's line, launches, steps, ms per step,
+    peak GiB)."""
+    import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch import bench
+
+    b = run["bench"]
+    kernels = _zero_counts()
+    steps0 = b.steps
+    line = bench.run(b, run["metric"], iters, count_flops=count_flops)
+    ms = b.seconds_per_step * 1e3
+    count = " after a FLOP-count step" if count_flops else ""
+    launches = _check_run(run, kernels, b.metrics, per_step, b.steps - steps0,
+                          f"{iters} timed steps{count} (bench.run), {ms:.1f} ms/step, ")
+    return line, launches, b.steps - steps0, ms, torch.cuda.max_memory_allocated() / 2**30
 
 
 def _metric_line(metric, ms, smi):
@@ -858,18 +911,25 @@ def _metric_line(metric, ms, smi):
 
 
 def phase_train(smi: str):
-    """Every train path at full width. All timed runs come before the first
-    profile: profiling slows the host side of the steps that come after it.
-    The two geom configurations are timed in turns (default, xla, xla,
-    default) so that host drift within the call shows. Returns the launches
-    of each path's first run, the default geom step's ms, and the profiles
-    to run once every timed run (the CLI phase's too) is done."""
+    """Every train path at full width. The geom (default Config), flow
+    ("splat") and depth steps go through the bench module's ``run``
+    (``bench.py``'s settings, FLOP count and line); the others through
+    ``_drive``. All timed runs come before the first profile: profiling
+    slows the host side of the steps that come after it. The geom step is
+    timed in turns with ssim_impl="xla" (default, xla, xla, default) and
+    without and with the FLOP-count step before its timed steps, so that
+    host drift within the call shows. Returns the launches of each path's
+    first run, the bench lines of geom, flow and depth, and the profiles to
+    run once every timed run (the later phases' too) is done."""
     import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch.bench import Settings
 
     torch.backends.cudnn.benchmark = True
     corr = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5}
     ssim = {"ssim_fwd": 6, "ssim_bwd": 6}
     by_path = {}  # path -> (launches by kernel, steps) of its first run
+    lines = {}  # path -> bench.py's line of its first run
 
     def drive(run, per_step, warmup, timed, path=None):
         launches, ms, peak = _drive(run, per_step, warmup, timed)
@@ -877,24 +937,46 @@ def phase_train(smi: str):
             by_path[path] = (launches, warmup + timed)
         return ms, peak
 
+    def bench_drive(run, per_step, iters, count_flops, path=None):
+        line, launches, steps, ms, peak = _bench_drive(run, per_step, iters, count_flops)
+        if path is not None:
+            by_path[path] = (launches, steps)
+            lines[path] = line
+            log(json.dumps({**line, "path": path, "device": torch.cuda.get_device_name(0),
+                            "nvidia_smi": smi, "ms_per_step": ms}))
+        return ms, peak
+
     geom_k = {"warp_gather": 6, **corr, **ssim}
     xla_k = {"warp_gather": 6, **corr}
-    geom = _start("geom default", {})
+    geom = _start_bench("geom default", Settings())
     xla = _start("geom ssim_impl=xla", {"ssim_impl": "xla"})
-    ms_g, gb_g = drive(geom, geom_k, 3, 10, "geom")
-    _metric_line("frames/sec joint depth+flow+pose fwd-bwd (b8 256x832 bf16, PyTorch port)",
-                 ms_g, smi)
+    ms_g, gb_g = bench_drive(geom, geom_k, 20, True, "geom")
     ms_x, gb_x = drive(xla, xla_k, 3, 10)
     ms_x2, _ = drive(xla, xla_k, 0, 5)
-    ms_g2, _ = drive(geom, geom_k, 0, 5)
+    # the FLOP-count step (a FlopCounterMode session) must not slow the
+    # timed steps after it: without it, with it, without it
+    turns = [(c, bench_drive(geom, geom_k, 10, c)[0]) for c in (False, True, False)]
+    ms_g2 = turns[0][1]
+    log("geom step through bench.run, in turns: " + ", ".join(
+        f"{ms:.2f} ms/step {'after' if c else 'without'} the FLOP-count step"
+        for c, ms in [(True, ms_g), *turns]) + f" (20, then 10 timed steps each) | nvidia-smi: {smi}")
+    # BENCH_WARP_IMPL=pallas: the gathers without planes and the re-gather
+    # backward; the FLOP count reads the same work as the default route's
+    run = _start_bench("geom BENCH_WARP_IMPL=pallas", Settings(warp_impl="pallas"))
+    line = _bench_drive(run, {"warp_gather_nograd": 6, "warp_gather_bwd": 6, **corr, **ssim},
+                        5, True)[0]
+    if line["flops_per_step"] != lines["geom"]["flops_per_step"]:
+        fail(f"geom BENCH_WARP_IMPL=pallas: flops_per_step {line['flops_per_step']}, the "
+             f"default route's {lines['geom']['flops_per_step']}")
+    log(f"geom BENCH_WARP_IMPL=pallas through bench.run: {json.dumps(line)}")
+    del run
+    torch.cuda.empty_cache()
 
     flow_k = {"warp_gather": 4, **corr, **ssim, "splat_mass": 8}
-    flow = _start("flow splat", {"mode": "flow", "flow_occ_impl": "splat"})
-    ms_f, _ = drive(flow, flow_k, 3, 5, "flow")
-    _metric_line("frames/sec flow-mode fwd-bwd (b8 256x832 bf16, flow_occ_impl=splat, "
-                 "PyTorch port)", ms_f, smi)
-    depth = _start("depth", {"mode": "depth"})
-    ms_d, _ = drive(depth, {"warp_gather": 6}, 2, 3, "depth")
+    flow = _start_bench("flow splat", Settings(mode="flow", flow_occ="splat"))
+    ms_f, _ = bench_drive(flow, flow_k, 20, True, "flow")
+    depth = _start_bench("depth", Settings(mode="depth"))
+    ms_d, _ = bench_drive(depth, {"warp_gather": 6}, 20, True, "depth")
 
     # the geom step with the four optional losses (the eight-point loss at
     # the weight configs/kitti_geom.yaml names as stable), and at
@@ -918,17 +1000,22 @@ def phase_train(smi: str):
         ratios.append(f"{name} {ms_g / ms:.3f}x")
         del run
         torch.cuda.empty_cache()
-    # encoder_int8: every encoder conv in int8 on torch._int_mm (20 a step,
-    # all in the forward: the straight-through backward is the float conv's)
+    # encoder_int8 (BENCH_INT8=1): every encoder conv in int8 on torch._int_mm
+    # (20 a step, all in the forward: the straight-through backward is the
+    # float conv's); the im2col GEMMs do the convs' multiply-adds, so the
+    # FLOP count is the default's (the card pads the stem's K: not counted)
     from unsupervised_depth_opticalflow_egomotion_torch.ops import int8_conv as ti8
 
-    run = _start("geom encoder_int8", {"encoder_int8": True})
+    run = _start_bench("geom encoder_int8", Settings(encoder_int8=True))
     mm_before = ti8.INT_MM.launches
-    ms, _ = drive(run, geom_k, 3, 10, "geom_int8")
-    if ti8.INT_MM.launches - mm_before != 20 * 13:
-        fail(f"geom encoder_int8: {ti8.INT_MM.launches - mm_before} int8 GEMMs in 13 steps, "
+    ms, _ = bench_drive(run, geom_k, 10, True, "geom_int8")
+    steps = by_path["geom_int8"][1]
+    if ti8.INT_MM.launches - mm_before != 20 * steps:
+        fail(f"geom encoder_int8: {ti8.INT_MM.launches - mm_before} int8 GEMMs in {steps} steps, "
              "expected 20 a step")
-    _metric_line("frames/sec geom encoder_int8 fwd-bwd (b8 256x832 bf16, PyTorch port)", ms, smi)
+    if lines["geom_int8"]["flops_per_step"] != lines["geom"]["flops_per_step"]:
+        fail(f"geom encoder_int8: flops_per_step {lines['geom_int8']['flops_per_step']}, the "
+             f"default's {lines['geom']['flops_per_step']}")
     ratios.append(f"geom encoder_int8 {ms_g / ms:.3f}x")
     _int8_accumulators(run)
     del run
@@ -957,11 +1044,11 @@ def phase_train(smi: str):
         _profile(flow["name"], flow["step"], flow["batch"], ms_f, verbose=True)
         _profile(depth["name"], depth["step"], depth["batch"], ms_d, verbose=True)
         log(f"geom step, ssim_impl=pallas vs xla in this call: {ms_g:.1f} vs {ms_x:.1f} ms/step "
-            f"(10 timed steps each), then {ms_g2:.1f} vs {ms_x2:.1f} (5 each, in the other "
+            f"(20 and 10 timed steps), then {ms_g2:.1f} vs {ms_x2:.1f} (10 and 5, in the other "
             f"order); {n_g} vs {n_x} kernel launches/step, device time {dev_g:.1f} vs "
             f"{dev_x:.1f} ms/step, peak memory {gb_g:.2f} vs {gb_x:.2f} GiB")
 
-    return by_path, ms_g, profiles
+    return by_path, lines, ms_g, profiles
 
 
 def _int8_accumulators(run) -> None:
@@ -1432,51 +1519,114 @@ EVAL_TASKS = {  # the eval CLI's tasks of phase 7: extra flags, what the output 
 }
 
 
+def _timed_calls(wrapped: list, kernels: dict):
+    """Replace each (module, name) of ``wrapped`` by a call that records
+    its result, its seconds (the card idle before and after) and the
+    kernel launches it made; returns (results, seconds, launches) by name
+    and a function that puts the originals back."""
+    import torch
+
+    originals = {n: getattr(m, n) for m, n in wrapped}
+    results, spans, launches = {}, {}, {}
+
+    def timed(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            before = {n: k.launches for n, k in kernels.items()}
+            t1 = time.perf_counter()
+            results[name] = originals[name](*args, **kw)
+            torch.cuda.synchronize()
+            spans[name] = time.perf_counter() - t1
+            launches[name] = {n: k.launches - before[n] for n, k in kernels.items()}
+            return results[name]
+        return call
+
+    for m, n in wrapped:
+        setattr(m, n, timed(n))
+
+    def restore():
+        for m, n in wrapped:
+            setattr(m, n, originals[n])
+
+    return (results, spans, launches), restore
+
+
+def _eval_cli_worker(out_json: str, *argv) -> None:
+    """Phase 7's eval CLI for kitti_flow_2015, the process that ``python3
+    chip_smoke.py eval_cli_2015 <json> <CLI args>`` starts: ``test.main``
+    (what ``python3 -m ...test`` runs) with the flow task timed where the
+    CLI calls it (end to end: PNG decode, inference, metrics, the
+    submission PNGs) and the kernels' launches and signatures counted;
+    those go to ``out_json``."""
+    from unsupervised_depth_opticalflow_egomotion_torch import eval_tasks
+    from unsupervised_depth_opticalflow_egomotion_torch import test as eval_cli
+
+    kernels = {n: k for n, (k, _) in path_kernels().items()}
+    for k in kernels.values():
+        k.launches = 0
+        k.seen.clear()
+    (_, spans, launches), restore = _timed_calls([(eval_tasks, "test_kitti_flow")], kernels)
+    try:
+        eval_cli.main(list(argv))
+    finally:
+        restore()
+    with open(out_json, "w") as f:
+        json.dump({"seconds": spans["test_kitti_flow"], "launches": launches["test_kitti_flow"],
+                   "all_launches": {n: k.launches for n, k in kernels.items()},
+                   "seen": {n: sorted(k.seen) for n, k in kernels.items()}}, f)
+
+
+def _gt_subset(gt_dir: str) -> tuple:
+    """The first SUBSET items of KITTI 2015's GT as the eval's loaders read
+    them (``load_gt_flow_kitti``'s and ``load_gt_mask``'s per-item readers):
+    flows, non-occluded masks, binary moving masks."""
+    import numpy as np
+
+    from unsupervised_depth_opticalflow_egomotion_torch.evaluation.flow_metrics import (
+        _read_flow_gt_worker,
+    )
+    from unsupervised_depth_opticalflow_egomotion_torch.evaluation.mask_metrics import (
+        _read_mask_gt_worker,
+    )
+
+    flows, nocs = zip(*(_read_flow_gt_worker(gt_dir, i) for i in range(SUBSET)))
+    moving = [(_read_mask_gt_worker(gt_dir, i) > 0).astype(np.float64) for i in range(SUBSET)]
+    return list(flows), list(nocs), moving
+
+
 def _eval_training_cli(root: str, dirs: dict, kernels: dict) -> dict:
-    """One geom run of the training CLI, 2 steps with test_interval 1 and all
-    four eval data sets named: log.pkl must hold one finite record of each
-    eval at step 1 and finite losses, and the launches must be the two
-    steps' and the eval's flow inference. Returns the GT the CLI read (its
-    ``load_eval_context``), which the rest of the phase reuses: the read
-    costs more than the eval (PERF.md section 5)."""
+    """One geom run of the training CLI, 2 steps with test_interval 1 and
+    the eigen split and odometry named for its interleaved eval (the KITTI
+    flow sets are the eval CLI's: the CLI reads no flow GT here): log.pkl
+    must hold one finite record of each eval at step 1 and finite losses,
+    and the launches must be the two steps'. Each task of the eval is timed
+    where the CLI calls it (end to end: PNG decode, inference, metrics).
+    Returns the tasks' seconds."""
     import pickle
 
     import numpy as np
-    import torch
 
+    from unsupervised_depth_opticalflow_egomotion_torch import eval_tasks
     from unsupervised_depth_opticalflow_egomotion_torch import train as cli
     from unsupervised_depth_opticalflow_egomotion_torch.config import load_config
 
     t0 = time.perf_counter()
     for k in kernels.values():
         k.launches = 0
+    eval_tasks._EIGEN_DECODE_CACHE.clear()
     cfg = load_config(os.path.join(root, "cli.yaml"), mode="geom", num_iterations=2,
                       test_interval=1, model_dir=os.path.join(root, "geom_eval"), **dirs)
-    # the GT read and the eval, timed where the CLI calls them
-    spans: dict[str, float] = {}
-    results = {}
-    originals = {n: getattr(cli, n) for n in ("load_eval_context", "run_interleaved_eval")}
-
-    def timed(name):
-        def call(*args, **kw):
-            t1 = time.perf_counter()
-            results[name] = originals[name](*args, **kw)
-            spans[name] = time.perf_counter() - t1
-            return results[name]
-        return call
-
-    for n in originals:
-        setattr(cli, n, timed(n))
+    (_, spans, _), restore = _timed_calls(
+        [(cli, "run_interleaved_eval"), (eval_tasks, "test_eigen_depth"),
+         (eval_tasks, "test_pose_odom")], kernels)
     try:
         cli.train(cfg)
     finally:
-        for n, f in originals.items():
-            setattr(cli, n, f)
-    torch.cuda.synchronize()
+        restore()
     with open(os.path.join(cfg.model_dir, "log.pkl"), "rb") as f:
         hist = pickle.load(f)
     evals = {k: v for k, v in hist.items() if k.startswith("eval/")}
-    names = ["eval/kitti_2012", "eval/kitti_2015", "eval/eigen_depth", "eval/pose_odom"]
+    names = ["eval/eigen_depth", "eval/pose_odom"]
     values = [np.asarray(list(v[0][1].values()) if isinstance(v[0][1], dict) else v[0][1],
                          np.float64) for v in evals.values()]
     if sorted(evals) != sorted(names) or any(len(v) != 1 or v[0][0] != 1 for v in evals.values()) \
@@ -1486,18 +1636,17 @@ def _eval_training_cli(root: str, dirs: dict, kernels: dict) -> dict:
     losses = [x for k, v in hist.items() if not k.startswith("eval/") for _, x in v]
     if not losses or not all(math.isfinite(x) for x in losses):
         fail(f"eval: the training CLI's losses are missing or not finite: {losses}")
-    # 2 geom steps; 5 cost volumes for each of the 25 + 25 eval batches
     per_step = {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
                 "ssim_fwd": 6, "ssim_bwd": 6}
-    want = {n: 2 * per_step.get(n, 0) + (5 * 50 if n == "corr_fwd" else 0) for n in kernels}
+    want = {n: 2 * per_step.get(n, 0) for n in kernels}
     got = {n: k.launches for n, k in kernels.items()}
     if got != want:
         fail(f"eval: the training CLI with interleaved eval launched {got}, expected {want}")
-    log(f"eval: training CLI, geom 2 steps with test_interval 1 and all four eval data sets: "
-        f"{time.perf_counter() - t0:.1f} s (the GT read {spans['load_eval_context']:.1f} s, the "
-        f"eval {spans['run_interleaved_eval']:.1f} s); log.pkl records "
+    log(f"eval: training CLI, geom 2 steps with test_interval 1 and the eval data sets eigen "
+        f"and odometry: {time.perf_counter() - t0:.1f} s (the eval "
+        f"{spans['run_interleaved_eval']:.1f} s); log.pkl records "
         + "; ".join(f"{k} {np.round(v, 4).tolist()}" for k, v in zip(evals, values)))
-    return results["load_eval_context"]
+    return spans
 
 
 def _eval_card_vs_cpu(cfg, t: dict, sd: dict, gt: tuple):
@@ -1582,7 +1731,6 @@ def phase_eval(smi: str, root: str):
     checkpoint that the CLI phase left in ``root``. Returns the eval_flow
     path's (launches by kernel, batches) and the YAML that names the
     synthetic trees."""
-    import numpy as np
     import torch
 
     from unsupervised_depth_opticalflow_egomotion_torch import eval_tasks
@@ -1605,19 +1753,42 @@ def phase_eval(smi: str, root: str):
     for k in kernels.values():
         k.seen.clear()
 
-    # the eval CLI for every task in subprocesses, started together; the
-    # training CLI's interleaved eval in this process meanwhile
+    # the eval CLI's five tasks in subprocesses, started together
+    # (kitti_flow_2015 through this script's eval_cli_2015 mode, which times
+    # its flow task and counts its launches: the eval_flow path); in this
+    # process meanwhile the training CLI's interleaved eval, then the card
+    # against the CPU
     procs = {}
+    flow_json = os.path.join(root, "eval_cli_kitti_flow_2015.json")
     try:
         for task, (extra, _) in EVAL_TASKS.items():
             if task == "demo":
                 extra = extra + ["--image_path", t["demo"]]
             out = open(os.path.join(OUT_DIR, f"eval_cli_{task}.txt"), "w")
-            cmd = [sys.executable, "-m", "unsupervised_depth_opticalflow_egomotion_torch.test",
-                   "-c", eval_yaml, "--task", task, "--pretrained_model", ckpt,
-                   "--result_dir", os.path.join(root, "results", task), *extra]
+            args = ["-c", eval_yaml, "--task", task, "--pretrained_model", ckpt,
+                    "--result_dir", os.path.join(root, "results", task), *extra]
+            cmd = ([sys.executable, os.path.abspath(__file__), "eval_cli_2015", flow_json, *args]
+                   if task == "kitti_flow_2015" else
+                   [sys.executable, "-m", "unsupervised_depth_opticalflow_egomotion_torch.test",
+                    *args])
             procs[task] = (subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT), out)
-        ctx = _eval_training_cli(root, dirs, kernels)
+        spans = _eval_training_cli(
+            root, {k: dirs[k] for k in ("raw_base_dir", "eigen_test_files_txt",
+                                        "eigen_gt_depths_npz", "kitti_odom_dir")}, kernels)
+        gt = _gt_subset(t["kitti2015"])
+
+        cfg = load_config(eval_yaml, compute_dtype="float32")
+        model, _ = _eval_card_vs_cpu(cfg, t, CheckpointManager(ckpt).restore_params(), gt)
+        del gt
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        a, b = (torch.rand(8, *cfg.img_hw, 3, device="cuda", generator=gen) for _ in range(2))
+        s9 = torch.rand(8, *cfg.img_hw, 9, device="cuda", generator=gen)
+        with torch.inference_mode(), eval_tasks.full_precision():
+            dev_ms = {"flow pairs": cuda_ms(lambda: model.inference_flow(a, b), 10),
+                      "depth frames": cuda_ms(lambda: model.infer_disp(a), 10),
+                      "pose snippets": cuda_ms(lambda: model.infer_pose(s9), 10)}
+        torch.cuda.synchronize()
+
         for task, (proc, out) in procs.items():
             rc = proc.wait(timeout=900)
             out.close()
@@ -1625,58 +1796,43 @@ def phase_eval(smi: str, root: str):
                 text = f.read()
             if rc != 0 or EVAL_TASKS[task][1] not in text:
                 fail(f"eval cli {task}: exited {rc}: {text[-2000:]}")
-            log(f"eval cli {task}: python3 -m unsupervised_depth_opticalflow_egomotion_torch.test "
-                f"exited 0: {' | '.join(text.strip().splitlines()[-3:])}")
+            how = ("python3 chip_smoke.py eval_cli_2015 (test.main)" if task == "kitti_flow_2015"
+                   else "python3 -m unsupervised_depth_opticalflow_egomotion_torch.test")
+            log(f"eval cli {task}: {how} exited 0 (waited for until "
+                f"{time.perf_counter() - t_start:.1f} s into the phase): "
+                f"{' | '.join(text.strip().splitlines()[-3:])}")
     finally:
-        for proc, out in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            out.close()
+        _stop(procs)
+    # the eval_flow path: the kitti_flow_2015 CLI's flow task, on the card
+    with open(flow_json) as f:
+        rec = json.load(f)
+    launches = rec["launches"]
+    want = {n: 5 * 25 if n == "corr_fwd" else 0 for n in kernels}
+    if launches != want or rec["all_launches"] != want:
+        fail(f"eval_flow: kernel launches {launches} (the process's {rec['all_launches']}), "
+             f"expected {want}")
+    unchecked = {n: sig for n, sig in ((n, {tuple(x) for x in v} - CHECKED[n])
+                                       for n, v in rec["seen"].items()) if sig}
+    if unchecked:
+        fail(f"eval_flow: launches with signatures that the kernels phase did not hold: {unchecked}")
+    # throughput: each task end to end (PNG decode, inference, metrics) as
+    # the CLIs ran it on the card (the flow task with its submission PNGs),
+    # under contention: the five eval CLIs and the training CLI share the
+    # host and the card, so these are not the throughput of a task run
+    # alone (as before this script overlapped them); and a device-resident
+    # batch of 8
+    e2e = {"flow pairs": 200 / rec["seconds"],
+           "depth frames": EIGEN_FRAMES / spans["test_eigen_depth"],
+           "pose snippets": (ODOM_FRAMES - 2) / spans["test_pose_odom"]}
+    for name in e2e:
+        log(f"eval throughput {name}/s: {e2e[name]:.1f} end to end under contention (PNG "
+            f"decode, inference, metrics, beside the five eval CLIs and the training CLI; not "
+            f"a task alone), {8 / dev_ms[name] * 1e3:.1f} on a "
+            f"device-resident batch of 8 ({dev_ms[name]:.2f} ms a batch, CUDA events over 10 "
+            f"batches), f32 TF32 off {cfg.img_hw[0]}x{cfg.img_hw[1]} | nvidia-smi: {smi}")
     n_sub = len(os.listdir(os.path.join(root, "results", "kitti_flow_2015", "submission")))
     if n_sub != 200 or not os.path.isfile(os.path.join(root, "results", "demo", "demo.png")):
         fail(f"eval cli: {n_sub} submission PNGs (expected 200) or no demo.png")
-
-    gt = (ctx["gt_flows_2015"], ctx["noc_masks_2015"], ctx["gt_masks_2015"])
-    del ctx
-    cfg = load_config(eval_yaml, compute_dtype="float32")
-    model, (flow_fn, disp_fn, pose_fn) = _eval_card_vs_cpu(
-        cfg, t, CheckpointManager(ckpt).restore_params(), gt)
-
-    # throughput: each task end to end (PNG decode, inference, metrics) on
-    # the card, the flow task as the eval_flow path (launch counts zeroed
-    # just before, read just after); then a device-resident batch of 8
-    torch.cuda.synchronize()
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    eval_tasks.test_kitti_flow(cfg, flow_fn, gt[0], gt[1], "kitti_2015", moving_masks=gt[2])
-    torch.cuda.synchronize()
-    e2e = {"flow pairs": 200 / (time.perf_counter() - t0)}
-    launches = {n: k.launches for n, k in kernels.items()}
-    want = {n: 5 * 25 if n == "corr_fwd" else 0 for n in kernels}
-    if launches != want:
-        fail(f"eval_flow: kernel launches {launches}, expected {want}")
-    eval_tasks._EIGEN_DECODE_CACHE.clear()
-    t0 = time.perf_counter()
-    eval_tasks.test_eigen_depth(cfg, disp_fn)
-    e2e["depth frames"] = EIGEN_FRAMES / (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    eval_tasks.test_pose_odom(cfg, pose_fn)
-    e2e["pose snippets"] = (ODOM_FRAMES - 2) / (time.perf_counter() - t0)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    a, b = (torch.rand(8, *cfg.img_hw, 3, device="cuda", generator=gen) for _ in range(2))
-    s9 = torch.rand(8, *cfg.img_hw, 9, device="cuda", generator=gen)
-    with torch.inference_mode(), eval_tasks.full_precision():
-        dev_ms = {"flow pairs": cuda_ms(lambda: model.inference_flow(a, b), 10),
-                  "depth frames": cuda_ms(lambda: model.infer_disp(a), 10),
-                  "pose snippets": cuda_ms(lambda: model.infer_pose(s9), 10)}
-    torch.cuda.synchronize()
-    for name in e2e:
-        log(f"eval throughput {name}/s: {e2e[name]:.1f} end to end (PNG decode, inference, "
-            f"metrics), {8 / dev_ms[name] * 1e3:.1f} on a device-resident batch of 8 "
-            f"({dev_ms[name]:.2f} ms a batch, CUDA events over 10 batches), f32 TF32 off "
-            f"{cfg.img_hw[0]}x{cfg.img_hw[1]} | nvidia-smi: {smi}")
     unchecked = {n: sorted(k.seen - CHECKED[n]) for n, k in kernels.items() if k.seen - CHECKED[n]}
     if unchecked:
         fail(f"eval: launches with signatures (dtype codes, sizes) that the kernels phase did "
@@ -1791,7 +1947,8 @@ def phase_synth(root: str):
         f"stage seconds {json.dumps({k: round(v, 1) for k, v in times.items()})}; "
         f"launches of the in-process stages {json.dumps(launches)}")
     log(f"synth: synth_eval before and after each stage (loss-free check, not a learning "
-        f"claim at {SYNTH_STEPS} steps): {json.dumps(summary)}")
+        f"claim at {SYNTH_STEPS} steps; fps_last under contention, beside phase 9's eval CLIs "
+        f"and phase 10's spawned ranks): {json.dumps(summary)}")
     log(f"synth: phase {time.perf_counter() - t_start:.1f} s")
 
 
@@ -1880,12 +2037,41 @@ def _held(kernels: dict, what: str) -> None:
              f"against the plain version: {unchecked}")
 
 
-def phase_two_view(smi: str, root: str, eval_yaml: str) -> dict:
+def _start_two_view_cli(root: str, eval_yaml: str) -> dict:
+    """Phase 9's subprocesses: the eval CLI's ``--mode two_view`` for both
+    flow tasks, from phase 6's geom checkpoint on phase 7's trees. Started
+    when phase 7 ends, so that they run beside phase 8; ``phase_two_view``
+    checks them."""
+    ckpt = os.path.join(root, "geom", "ckpt")
+    procs = {}
+    try:
+        for task in TWO_VIEW_TASKS:
+            out = open(os.path.join(OUT_DIR, f"two_view_cli_{task}.txt"), "w")
+            cmd = [sys.executable, "-m", "unsupervised_depth_opticalflow_egomotion_torch.test",
+                   "-c", eval_yaml, "--mode", "two_view", "--task", task,
+                   "--pretrained_model", ckpt, "--result_dir", os.path.join(root, "two_view", task)]
+            procs[task] = (subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT), out)
+    except BaseException:
+        _stop(procs)
+        raise
+    return procs
+
+
+def _stop(procs: dict) -> None:
+    """Kill the subprocesses of ``procs`` that still run; close their logs."""
+    for proc, out in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+
+
+def phase_two_view(smi: str, root: str, eval_yaml: str, procs: dict) -> dict:
     """Phase 9: the legacy two-view and flow-to-pose families on the card.
-    The eval CLI's ``--mode two_view`` for both flow tasks (subprocesses,
-    started first) from phase 6's geom checkpoint on phase 7's trees, whose
-    EPEs must be the geom-mode tasks' of phase 7 (the same PWC forward);
-    meanwhile, in this process: the two-view model at b8 256x832 f32 on the
+    The eval CLI's ``--mode two_view`` for both flow tasks (``procs``,
+    started before phase 8) from phase 6's geom checkpoint on phase 7's
+    trees, whose EPEs must be the geom-mode tasks' of phase 7 (the same PWC
+    forward); meanwhile, in this process: the two-view model at b8 256x832 f32 on the
     card against the CPU (the nets' half on 8 of the tree's pairs; the
     geometric half on the exact rigid flow of a known depth and pose, both
     devices against the truth), ``FlowPoseModel``'s forward_train card
@@ -1915,16 +2101,8 @@ def phase_two_view(smi: str, root: str, eval_yaml: str) -> dict:
     t_start = time.perf_counter()
     ckpt = os.path.join(root, "geom", "ckpt")
     kernels = {n: k for n, (k, _) in path_kernels().items()}
-    procs = {}
     by_path = {}
     try:
-        for task in TWO_VIEW_TASKS:
-            out = open(os.path.join(OUT_DIR, f"two_view_cli_{task}.txt"), "w")
-            cmd = [sys.executable, "-m", "unsupervised_depth_opticalflow_egomotion_torch.test",
-                   "-c", eval_yaml, "--mode", "two_view", "--task", task,
-                   "--pretrained_model", ckpt, "--result_dir", os.path.join(root, "two_view", task)]
-            procs[task] = (subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT), out)
-
         # the two-view model on the geom checkpoint, card and CPU, f32
         cfg = load_config(eval_yaml, mode="geom", compute_dtype="float32")
         joint = build_model(cfg, "cpu")
@@ -2066,11 +2244,7 @@ def phase_two_view(smi: str, root: str, eval_yaml: str) -> dict:
             if bad or set(got) != set(geom):
                 fail(f"two_view cli {task}: EPEs unlike the geom-mode task's: {bad}")
     finally:
-        for proc, out in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            out.close()
+        _stop(procs)
     log(f"two_view: phase {time.perf_counter() - t_start:.1f} s")
     return by_path, lambda: _profile("flowpose f32", train_step, None, fp_ms, verbose=True)
 
@@ -2322,34 +2496,48 @@ def _dp_group_cost(smi: str, root: str) -> None:
                 "group": _start("dp geom default, one-process NCCL group", {},
                                 dist.group.WORLD)}
         ms = {"plain": [], "group": []}
-        order = ("plain", "group", "group", "plain") * 2
+        order = ("plain", "group", "group", "plain")
         for key in order:
             ms[key].append(_drive(runs[key], geom_k, 2, 5)[1])
         log(f"dp (b): the default geom step in this process, b8 256x832 bf16, without and with "
             f"a one-process NCCL group, in turns ({', '.join(order)}; 5 timed steps each): "
-            + ", ".join(f"{ms[k][i]:.1f}" for k, i in zip(order, (0, 0, 1, 1, 2, 2, 3, 3)))
-            + f" ms/step; medians {statistics.median(ms['plain']):.1f} and "
-            f"{statistics.median(ms['group']):.1f}, the group "
-            f"{statistics.median(ms['group']) / statistics.median(ms['plain']):.3f}x the time "
+            + ", ".join(f"{ms[k][i]:.1f}" for k, i in zip(order, (0, 0, 1, 1)))
+            + f" ms/step; means {statistics.mean(ms['plain']):.1f} and "
+            f"{statistics.mean(ms['group']):.1f}, the group "
+            f"{statistics.mean(ms['group']) / statistics.mean(ms['plain']):.3f}x the time "
             f"| nvidia-smi: {smi}")
-        # after every timed run of the phase: a profile slows later steps
-        for key, run in runs.items():
-            _profile(run["name"], run["step"], run["batch"], statistics.median(ms[key]),
-                     verbose=False)
     finally:
         dist.destroy_process_group()
     del runs
     torch.cuda.empty_cache()
 
 
-def phase_dp(smi: str, root: str, cli_fps: float) -> tuple:
+def start_dp_ranks(root: str) -> dict:
+    """Phase 10's (c) and (a): their spawned ranks, started when phase 7
+    ends so that they run beside phase 8 (neither is timed); ``phase_dp``
+    joins and checks them."""
+    c_dir = os.path.join(root, "dp_gloo")
+    return {"t0": time.perf_counter(), "model_dir": os.path.join(c_dir, "run"),
+            "c": _start_ranks(_dp_cli_job, (os.path.join(root, "cli.yaml"),
+                                            os.path.join(c_dir, "run"), 3), c_dir),
+            "a": _start_ranks(_dp_steps_job, (), os.path.join(root, "dp_steps"))}
+
+
+def stop_dp_ranks(ranks: dict) -> None:
+    """Kill the ranks of ``start_dp_ranks`` that still run."""
+    for key in ("a", "c"):
+        for p in ranks[key][2]:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def phase_dp(smi: str, root: str, cli_fps: float, ranks: dict) -> tuple:
     """Data parallel: (a) two gloo ranks on card 0 against one process,
     (b) the training CLI under torchrun in a one-process NCCL group on
     phase 6's PNGs, timed beside phase 6, (c) the training CLI on two gloo
-    ranks on card 0, run beside (a). Returns the dp path's (launches,
-    steps)."""
-    import pickle
-
+    ranks on card 0; (a) and (c) are ``ranks`` (``start_dp_ranks``, run
+    beside phase 8). Returns the dp path's (launches, steps)."""
     import torch
 
     from unsupervised_depth_opticalflow_egomotion_torch.parallel import init_state, make_train_step
@@ -2358,64 +2546,35 @@ def phase_dp(smi: str, root: str, cli_fps: float) -> tuple:
     t_start = time.perf_counter()
     torch.cuda.empty_cache()
     yaml_path = os.path.join(root, "cli.yaml")
-    # (c) and (a) at once (neither is timed); (b), timed, after both
-    c_dir = os.path.join(root, "dp_gloo")
-    model_dir = os.path.join(c_dir, "run")
-    c_ranks = _start_ranks(_dp_cli_job, (yaml_path, model_dir, 3), c_dir)
-    # (a)
-    ranks = _join_ranks(_start_ranks(_dp_steps_job, (), os.path.join(root, "dp_steps")))
+    model_dir = ranks["model_dir"]
+    # (a): one process's steps, then the ranks'
+    wants = {}
     for name, kw in DP_STEPS.items():
         cfg = _dp_step_config(kw)
         model, opt = init_state(cfg)
-        want = _step_record(model, opt, make_train_step(model, cfg, opt)(
+        wants[name] = _step_record(model, opt, make_train_step(model, cfg, opt)(
             _batch(cfg.batch_size, 64, 128, torch.device("cuda")), 0))
+        del model, opt
+    a_out = _join_ranks(ranks["a"])
+    log(f"dp (a), (c): started {t_start - ranks['t0']:.1f} s before this phase, beside phase 8")
+    for name, want in wants.items():
+        cfg = _dp_step_config(DP_STEPS[name])
         bad = [f"rank 1 differs from rank 0: {k}" for k in ("metrics", "after", "mu", "nu")
-               if ranks[0][name][k].keys() != ranks[1][name][k].keys() or any(
-                   not (v == ranks[1][name][k][n] if isinstance(v, float) else
-                        torch.equal(v, ranks[1][name][k][n]))
-                   for n, v in ranks[0][name][k].items())]
-        bad += _dp_compare(ranks[0][name], want, cfg.mode)
+               if a_out[0][name][k].keys() != a_out[1][name][k].keys() or any(
+                   not (v == a_out[1][name][k][n] if isinstance(v, float) else
+                        torch.equal(v, a_out[1][name][k][n]))
+                   for n, v in a_out[0][name][k].items())]
+        bad += _dp_compare(a_out[0][name], want, cfg.mode)
         if bad:
             fail(f"dp (a) {name}: two ranks against one process: {bad[:8]}")
-        del model, opt
         log(f"dp (a) {name}: two gloo ranks on card 0 (b2 each) match one process on the "
             f"global b4 64x128 f32 (TF32 off), and each other bit for bit")
     torch.cuda.empty_cache()
-
-    # (c)
-    r0, r1 = _join_ranks(c_ranks)
-    bad = []
-    if (r0["step"], r1["step"]) != (3, 3):
-        bad.append(f"steps {r0['step']}, {r1['step']}")
-    if r0["writes"] != {"save": 1, "logger": 1, "dump": 1} or any(r1["writes"].values()):
-        bad.append(f"writes rank 0 {r0['writes']}, rank 1 {r1['writes']}")
-    if (r1["printed"] or "training done" not in r0["printed"]
-            or "x 2 ranks (gloo)" not in r0["printed"]):
-        bad.append("rank 0 alone prints, and names the two-rank gloo group")
-    if CheckpointManager(os.path.join(model_dir, "ckpt")).steps() != [3] or not all(
-            os.path.exists(os.path.join(model_dir, n)) for n in ("log.pkl", "config.json")):
-        bad.append("ckpt/3, log.pkl and config.json")
-    means = []
-    for (l0, m0), (l1, m1) in zip(r0["reduced"], r1["reduced"]):
-        if m0 != m1 or any(abs(m0[k] - (l0[k] + l1[k]) / 2) > 1e-6 * abs(m0[k]) for k in m0):
-            bad.append("a step's metrics are not the two ranks' mean on both")
-        means.append(m0)
-    with open(os.path.join(model_dir, "log.pkl"), "rb") as f:
-        hist = pickle.load(f)
-    if len(means) != 3 or {k: [v for _, v in vals] for k, vals in hist.items()} != {
-            k: [m[k] for m in means] for k in means[0]}:
-        bad.append("log.pkl holds other losses than the world means")
-    if any(not torch.equal(v, r1["state"][k]) for k, v in r0["state"].items()):
-        bad.append("the ranks' parameters or buffers differ")
-    if bad:
-        fail(f"dp (c): the CLI on two gloo ranks: {bad}")
-    log(f"dp (c): the CLI on two gloo ranks on card 0, geom b8 global (b4 each) 256x832 bf16, "
-        f"3 steps (beside (a)), in {time.perf_counter() - t_start:.1f} s from the phase's start: "
-        f"losses the world means (loss_total {means[-1]['loss_total']:.4f}), rank 0 alone "
-        "wrote ckpt/, log.pkl and config.json and printed, the ranks end bit-equal")
+    r0, r1 = _join_ranks(ranks["c"])
+    _dp_check_cli(r0, r1, model_dir)
     del r0, r1
 
-    # (b)
+    # (b), timed
     run_dir, out_json = os.path.join(root, "dp_torchrun"), os.path.join(root, "dp_torchrun.json")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
            os.path.abspath(__file__), "dp_torchrun", yaml_path, run_dir, out_json]
@@ -2451,6 +2610,104 @@ def phase_dp(smi: str, root: str, cli_fps: float) -> tuple:
     _dp_group_cost(smi, root)
     log(f"dp: phase {time.perf_counter() - t_start:.1f} s")
     return launches, 10
+
+
+def _dp_check_cli(r0: dict, r1: dict, model_dir: str) -> None:
+    """(c)'s checks on the two ranks' records."""
+    import pickle
+
+    import torch
+
+    from unsupervised_depth_opticalflow_egomotion_torch.utils import CheckpointManager
+
+    bad = []
+    if (r0["step"], r1["step"]) != (3, 3):
+        bad.append(f"steps {r0['step']}, {r1['step']}")
+    if r0["writes"] != {"save": 1, "logger": 1, "dump": 1} or any(r1["writes"].values()):
+        bad.append(f"writes rank 0 {r0['writes']}, rank 1 {r1['writes']}")
+    if (r1["printed"] or "training done" not in r0["printed"]
+            or "x 2 ranks (gloo)" not in r0["printed"]):
+        bad.append("rank 0 alone prints, and names the two-rank gloo group")
+    if CheckpointManager(os.path.join(model_dir, "ckpt")).steps() != [3] or not all(
+            os.path.exists(os.path.join(model_dir, n)) for n in ("log.pkl", "config.json")):
+        bad.append("ckpt/3, log.pkl and config.json")
+    means = []
+    for (l0, m0), (l1, m1) in zip(r0["reduced"], r1["reduced"]):
+        if m0 != m1 or any(abs(m0[k] - (l0[k] + l1[k]) / 2) > 1e-6 * abs(m0[k]) for k in m0):
+            bad.append("a step's metrics are not the two ranks' mean on both")
+        means.append(m0)
+    with open(os.path.join(model_dir, "log.pkl"), "rb") as f:
+        hist = pickle.load(f)
+    if len(means) != 3 or {k: [v for _, v in vals] for k, vals in hist.items()} != {
+            k: [m[k] for m in means] for k in means[0]}:
+        bad.append("log.pkl holds other losses than the world means")
+    if any(not torch.equal(v, r1["state"][k]) for k, v in r0["state"].items()):
+        bad.append("the ranks' parameters or buffers differ")
+    if bad:
+        fail(f"dp (c): the CLI on two gloo ranks: {bad}")
+    log(f"dp (c): the CLI on two gloo ranks on card 0, geom b8 global (b4 each) 256x832 bf16, "
+        f"3 steps (beside (a)): losses the world means (loss_total {means[-1]['loss_total']:.4f}), rank 0 alone "
+        "wrote ckpt/, log.pkl and config.json and printed, the ranks end bit-equal")
+
+
+def phase_bench(smi: str, geom_line: dict) -> None:
+    """Phase 11: ``python3 -m unsupervised_depth_opticalflow_egomotion_torch.bench``
+    as a subprocess, with the default settings (no BENCH_* variable). Its
+    standard output must be exactly one JSON line with bench.py's keys,
+    ``metric`` bench.py's default string, 0 < mfu <= 1, and
+    ``flops_per_step`` phase 5's count of the same Config in this process."""
+    from unsupervised_depth_opticalflow_egomotion_torch.bench import Settings
+
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run(
+        [sys.executable, "-m", "unsupervised_depth_opticalflow_egomotion_torch.bench"],
+        capture_output=True, text=True, timeout=600, env=env)
+    with open(os.path.join(OUT_DIR, "bench.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        fail(f"bench: python3 -m ...bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out = proc.stdout.splitlines()
+    try:
+        line = json.loads(out[0]) if len(out) == 1 else None
+    except json.JSONDecodeError:
+        line = None
+    keys = {"metric", "value", "unit", "vs_baseline", "flops_per_step", "mfu"}
+    if not isinstance(line, dict) or set(line) != keys:
+        fail(f"bench: standard output is not one JSON line with the keys {sorted(keys)}: "
+             f"{proc.stdout[-2000:]!r}")
+    if line["metric"] != Settings().metric():
+        fail(f"bench: metric {line['metric']!r}, expected bench.py's {Settings().metric()!r}")
+    if not 0 < line["mfu"] <= 1:
+        fail(f"bench: mfu {line['mfu']} outside (0, 1]")
+    if line["flops_per_step"] != geom_line["flops_per_step"]:
+        fail(f"bench: flops_per_step {line['flops_per_step']} against phase 5's "
+             f"{geom_line['flops_per_step']} for the same Config")
+    log(json.dumps(line))
+    log(f"bench: python3 -m unsupervised_depth_opticalflow_egomotion_torch.bench exited 0 in "
+        f"{time.perf_counter() - t0:.1f} s: {line['value']} frames/s against phase 5's "
+        f"{geom_line['value']} in process, flops_per_step equal to phase 5's "
+        f"({line['flops_per_step']:.6g}) | "
+        + next((x for x in proc.stderr.splitlines() if x.startswith("bench: ")), smi))
+
+
+ABLATE_ITERS = 5  # timed calls of each ablation entry
+
+
+def phase_ablate(smi: str) -> None:
+    """The step ablation (``ablate_step.run``) at full width, after every
+    timed run and before the profiles; every launch's signature one that
+    phase 3 held."""
+    from unsupervised_depth_opticalflow_egomotion_torch import ablate_step
+
+    kernels = _zero_counts()
+    rows = ablate_step.run(ABLATE_ITERS)
+    unchecked = {n: sorted(k.seen - CHECKED[n]) for n, k in kernels.items() if k.seen - CHECKED[n]}
+    if unchecked:
+        fail(f"ablate: launches with signatures that the kernels phase did not hold: {unchecked}")
+    for r in rows:
+        log(f"ablate {r['name']:32s} {r['host_ms']:8.1f} ms host {r['device_ms']:8.1f} ms device")
+    log(json.dumps({"ablate": rows, "iters": ABLATE_ITERS, "nvidia_smi": smi}))
 
 
 def _profile(name, step, batch, step_ms: float, verbose: bool):
@@ -2523,17 +2780,26 @@ def main():
     timed("build", phase_build)
     rows = timed("kernels", phase_kernels)
     timed("parity", phase_parity)
-    by_path, ms_geom, profiles = timed("train", phase_train, smi)
+    by_path, lines, ms_geom, profiles = timed("train", phase_train, smi)
     # the runs' directories are large: a temporary one, removed afterwards
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         cli_fps = timed("cli", phase_cli, smi, ms_geom, root)
         by_path["eval_flow"], eval_yaml = timed("eval", phase_eval, smi, root)
-        timed("synth", phase_synth, root)
-        tv_paths, flowpose_profile = timed("two_view", phase_two_view, smi, root, eval_yaml)
+        # phase 9's subprocesses and phase 10's spawned ranks, beside phase 8
+        tv_procs = _start_two_view_cli(root, eval_yaml)
+        dp_ranks = start_dp_ranks(root)
+        try:
+            timed("synth", phase_synth, root)
+            tv_paths, flowpose_profile = timed("two_view", phase_two_view, smi, root, eval_yaml,
+                                               tv_procs)
+            by_path["dp"] = timed("dp", phase_dp, smi, root, cli_fps, dp_ranks)
+        finally:
+            _stop(tv_procs)
+            stop_dp_ranks(dp_ranks)
         by_path.update(tv_paths)
-        by_path["dp"] = timed("dp", phase_dp, smi, root, cli_fps)
-    timed("profiles", profiles)
-    timed("flowpose profile", flowpose_profile)
+        timed("bench", phase_bench, smi, lines["geom"])
+        timed("ablate", phase_ablate, smi)
+        timed("profiles", lambda: (profiles(), flowpose_profile()))
     log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()))
 
     table = []
@@ -2587,5 +2853,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["dp_torchrun"]:  # phase 10 (b): the process torchrun starts
         _dp_torchrun_worker(*sys.argv[2:])
+    elif sys.argv[1:2] == ["eval_cli_2015"]:  # phase 7: the eval CLI for kitti_flow_2015
+        _eval_cli_worker(*sys.argv[2:])
     else:
         main()

@@ -457,3 +457,26 @@ def test_int8_conv_card_accumulators_equal_the_exact_version(cuda, b, h, w, cin,
     assert torch.equal(res[0][0], res[1][0])
     for a, b_ in zip(res[0][1:], res[1][1:]):
         assert (a - b_).abs().max() <= 1e-5 * b_.abs().max()
+
+
+def test_int8_conv_card_counts_its_own_k(cuda):
+    """The card's int8 stem GEMM (K 147, padded to 152 for ``torch._int_mm``)
+    counts 2 M N K at K = 147 in ``ops/flops.py``, and nothing under the
+    bench's ``FlopCounterMode`` mapping: the CPU route's count."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from unsupervised_depth_opticalflow_egomotion_torch.bench import MATRIX_MAPPING
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import flops
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import int8_conv as ti8
+
+    gen = torch.Generator().manual_seed(0)
+    xq = torch.randint(-127, 128, (2, 16, 24, 3), generator=gen, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (8, 3, 7, 7), generator=gen, dtype=torch.int8)
+    counts = []
+    for dev in (cuda, torch.device("cpu")):
+        with FlopCounterMode(display=False, custom_mapping=MATRIX_MAPPING) as matrix, \
+                flops.counting() as kernels:
+            ti8.conv_i32(xq.to(dev), wq.to(dev), 2, 3)
+        counts.append((matrix.get_total_flops(), kernels.by_function))
+    want = 2 * (2 * 8 * 12) * 8 * 147
+    assert counts == [(0, {"int8_conv": want}), (want, {})]

@@ -25,6 +25,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import flops
 from .cuda_lib import DTYPE_CODE, CudaKernel, check_cuda_tensor
 
 _P = ctypes.c_void_p
@@ -151,9 +152,13 @@ CORR_IMPLS = ("fused", "pallas", "xla")
 def correlation(
     f1: torch.Tensor, f2: torch.Tensor, md: int = 4, impl: str = "fused"
 ) -> torch.Tensor:
-    """NHWC cost volume [B,H,W,(2md+1)^2] under ``Config.pwc_corr`` routing."""
+    """NHWC cost volume [B,H,W,(2md+1)^2] under ``Config.pwc_corr`` routing
+    (counted by ``flops.counting()`` whatever the route)."""
     if impl not in CORR_IMPLS:
         raise ValueError(f"pwc_corr must be one of {CORR_IMPLS}, got {impl!r}")
+    if flops.active():
+        n = flops.corr_flops(*f1.shape, md)
+        f1, f2 = flops.counted("correlation", n, n * (f1.requires_grad + f2.requires_grad), f1, f2)
     if impl == "xla":
         return correlation_plain(f1, f2, md)
     fn = Correlation if impl == "fused" else CorrelationPlainBackward

@@ -21,6 +21,11 @@ JAX package computes this with ``lax.conv_general_dilated``, outside any
 Pallas kernel. On CPU tensors the same columns go through an exact int64
 ``torch.matmul`` (``conv_i32_plain``), the card path's oracle.
 
+Either route's GEMM is counted once, 2 M N K at the convolution's own K
+(``gemm_flops``): ``FlopCounterMode`` counts the plain route's matmul, and
+has no count for ``torch._int_mm`` (whose K is padded besides), so the card
+route adds its count to ``ops/flops.py``'s as ``int8_conv``.
+
 Activations are NHWC and weights torch's [O, I, kh, kw], as ``models/
 layers.Conv``'s.
 """
@@ -29,6 +34,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import flops
 
 
 class CallCount:
@@ -43,10 +50,17 @@ class CallCount:
 INT_MM = CallCount()
 
 
+def _scale(absmax: torch.Tensor) -> torch.Tensor:
+    """max(absmax, 1e-8) / 127 by true division on every device: CUDA
+    divides by a Python scalar through its reciprocal, one ulp off at
+    times, where the CPU and JAX divide."""
+    return torch.clamp(absmax, min=1e-8) / torch.full_like(absmax, 127.0)
+
+
 def quant_act(x: torch.Tensor):
     """Per-tensor symmetric int8: (q, s), q = round(x / s), s = absmax / 127."""
     xf = x.float()
-    s = torch.clamp(xf.abs().amax(), min=1e-8) / 127.0
+    s = _scale(xf.abs().amax())
     q = torch.clamp(torch.round(xf / s), -127.0, 127.0)
     return q.to(torch.int8), s
 
@@ -54,7 +68,7 @@ def quant_act(x: torch.Tensor):
 def quant_weight(w: torch.Tensor):
     """Per-output-channel symmetric int8 of an [O, I, kh, kw] weight: (q, s[O])."""
     wf = w.float()
-    s = torch.clamp(wf.abs().amax(dim=(1, 2, 3)), min=1e-8) / 127.0
+    s = _scale(wf.abs().amax(dim=(1, 2, 3)))
     q = torch.clamp(torch.round(wf / s[:, None, None, None]), -127.0, 127.0)
     return q.to(torch.int8), s
 
@@ -74,6 +88,15 @@ def _im2col(xq: torch.Tensor, kernel: int, stride: int, padding: int):
 def _weight_rows(wq: torch.Tensor) -> torch.Tensor:
     """[O, kh*kw*I] rows of an [O, I, kh, kw] weight, in the columns' order."""
     return wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
+
+
+def gemm_flops(xq, wq, stride: int, padding: int) -> int:
+    """2 M N K of the convolution's GEMM: M output pixels, N output
+    channels, K = kh * kw * Cin (unpadded)."""
+    b, h, w, c = xq.shape
+    o, _, kh, kw = wq.shape
+    ho, wo = (h + 2 * padding - kh) // stride + 1, (w + 2 * padding - kw) // stride + 1
+    return 2 * b * ho * wo * o * kh * kw * c
 
 
 def conv_i32_plain(xq, wq, stride: int, padding: int) -> torch.Tensor:
@@ -100,6 +123,7 @@ def conv_i32_card(xq, wq, stride: int, padding: int) -> torch.Tensor:
         rows = F.pad(rows, (0, pad_k))
     acc = torch._int_mm(cols, rows.contiguous().t())
     INT_MM.launches += 1
+    flops.count("int8_conv", gemm_flops(xq, wq, stride, padding))
     return acc[:m].view(b, ho, wo, -1)
 
 

@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from . import flops
 from .cuda_lib import DTYPE_CODE, CudaKernel, check_cuda_tensor
 from .warp import pixel_grid
 
@@ -126,7 +127,9 @@ def occlusion_mask_from_flow(flow: torch.Tensor, taps: str = "bilinear") -> torc
         return mask.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     if taps in ("nearest", "nearest_half"):
         mass = forward_splat_nearest_mass(flow)
-    elif taps == "bilinear":
+        return mass.clamp(0.0, 1.0)
+    flops.count("splat", flops.splat_mass_flops(b * h * w))  # the kernel's function, any route
+    if taps == "bilinear":
         mass = splat_mass(flow.contiguous())
     else:
         mass = splat_mass_plain(flow)

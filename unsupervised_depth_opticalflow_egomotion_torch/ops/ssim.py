@@ -27,6 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import flops
 from .cuda_lib import DTYPE_CODE, CudaKernel, check_cuda_tensor
 
 _P = ctypes.c_void_p
@@ -173,7 +174,11 @@ def ssim_route(impl: str, device: torch.device) -> str:
 
 
 def ssim(x: torch.Tensor, y: torch.Tensor, impl: str = "xla") -> torch.Tensor:
-    """Per-pixel SSIM map under ``Config.ssim_impl`` routing."""
+    """Per-pixel SSIM map under ``Config.ssim_impl`` routing (counted by
+    ``flops.counting()`` whatever the route)."""
+    if flops.active():
+        n = x.numel()
+        x, y = flops.counted("ssim", flops.ssim_fwd_flops(n), flops.ssim_bwd_flops(n), x, y)
     if ssim_route(impl, x.device) == "kernel":
         return SSIM.apply(x.contiguous(), y.contiguous())
     return ssim_plain(x, y)

@@ -38,6 +38,7 @@ from dataclasses import dataclass
 
 import torch
 
+from . import flops
 from .cuda_lib import DTYPE_CODE, CudaKernel, check_cuda_tensor
 
 _P = ctypes.c_void_p
@@ -334,6 +335,10 @@ def grid_sample_with_weight(
     coords = coords.float()
     ix = (coords[..., 0] + 1.0) * 0.5 * (w - 1)
     iy = (coords[..., 1] + 1.0) * 0.5 * (h - 1)
+    if c == 3 and (is_u8 or src_is_data) and flops.active():  # the kernels' function, any route
+        n = ix.numel()
+        ix, iy = flops.counted("warp", flops.warp_gather_nograd_flops(n),
+                               flops.warp_gather_bwd_flops(n), ix, iy)
     if c == 3 and route.impl != "xla" and (is_u8 or (src_is_data and route.bf16)):
         fn = WarpGather if route.impl == "pallas_fused" else WarpRegather
         return fn.apply(img.detach().contiguous(), ix.contiguous(), iy.contiguous(), dtype)
