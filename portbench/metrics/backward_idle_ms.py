@@ -1,0 +1,9 @@
+"""Device idle time a step (ms) while ``train_step.backward`` (``zero_grad``
+and ``backward()``) are the innermost program spans open, over the traced
+steps (``portbench/spans.py``)."""
+
+from portbench.spans import idle_ms
+
+
+def read(ctx):
+    return idle_ms(ctx, "backward")

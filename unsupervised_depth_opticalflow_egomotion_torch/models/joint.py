@@ -23,6 +23,12 @@ its indices (``draw_samples``), so the card and the CPU can be given the same
 draws. ``encoder_int8`` runs the depth encoder's convs in int8
 (``models/depth_net.py``, ``ops/int8_conv.py``).
 
+The training forwards mark their networks (``net.depth``, ``net.pose``,
+``net.pyramid``, ``net.pwc``) and the parts of the loss graph
+(``loss.recon``, ``loss.flow_warps``, ``loss.masks``, ``loss.terms``,
+``loss.sampled``) as program spans (``utils/profiler.span``), each once a
+call; the inference methods mark nothing.
+
 NOTE (preserved reference behaviour): the sigmoid disp pyramid is used
 directly as "depth" in the reconstruction.
 """
@@ -47,6 +53,7 @@ from ..ops.splat import occlusion_mask_from_flow
 from ..ops.ssim import ssim_route
 from ..ops.triangulation import midpoint_triangulate, register_depth, reproject
 from ..ops.warp import WarpRoute, warp_flow
+from ..utils.profiler import span
 from .depth_net import DepthNet
 from .feature_pyramid import FeaturePyramid
 from .layers import module_mode
@@ -212,11 +219,13 @@ class JointModel(nn.Module):
         b = img.shape[0]
 
         # one 3B feature pass + one 2B decoder pass (bwd first, fwd second)
-        feats_all = self.fpyramid(torch.cat([img_l, img, img_r], 0))
-        feat_l, feat, feat_r = zip(*(_split3(f) for f in feats_all))
-        feat_cc = tuple(torch.cat([c, c], 0) for c in feat)
-        feat_lr = tuple(torch.cat(p, 0) for p in zip(feat_l, feat_r))
-        flows_both = self.pwc_model(feat_cc, feat_lr, hw)[ls:]
+        with span("net.pyramid"):
+            feats_all = self.fpyramid(torch.cat([img_l, img, img_r], 0))
+        with span("net.pwc"):
+            feat_l, feat, feat_r = zip(*(_split3(f) for f in feats_all))
+            feat_cc = tuple(torch.cat([c, c], 0) for c in feat)
+            feat_lr = tuple(torch.cat(p, 0) for p in zip(feat_l, feat_r))
+            flows_both = self.pwc_model(feat_cc, feat_lr, hw)[ls:]
         flows_bwd = [f[:b] for f in flows_both]
         flows_fwd = [f[b:] for f in flows_both]
 
@@ -226,41 +235,53 @@ class JointModel(nn.Module):
         img_l_pyr = image_pyramid(img_l, n, mode="area")
         img_pyr = image_pyramid(img, n, mode="area")
         img_r_pyr = image_pyramid(img_r, n, mode="area")
-        warped_from_l, warped_from_r = self._flow_warps(raw, img_l_pyr, img_r_pyr, flows_both)
-
         smooth = L.flow_smooth_loss(flows_fwd[:ns], img_pyr[:ns]) + L.flow_smooth_loss(
             flows_bwd[:ns], img_pyr[:ns]
         )
-        if cfg.flow_occ_impl == "diff_weights":
-            diff_bwd, diff_fwd, w_bwd, w_fwd = M.diff_weights(
-                warped_from_l, img_pyr, warped_from_r
-            )
-            return {
-                "loss_flow_pixel": L.masked_diff_loss(diff_fwd[:ns], w_fwd[:ns])
-                + L.masked_diff_loss(diff_bwd[:ns], w_bwd[:ns]),
-                "loss_flow_ssim": L.ssim_loss(img_pyr[:ns], warped_from_r[:ns], w_fwd[:ns], ssim_impl)
-                + L.ssim_loss(img_pyr[:ns], warped_from_l[:ns], w_bwd[:ns], ssim_impl),
-                "loss_flow_smooth": smooth,
-                "loss_flow_consis": L.flow_consis_loss(flows_fwd[:ns], flows_bwd[:ns], w_fwd[:ns]),
-            }
+        diff_weights = cfg.flow_occ_impl == "diff_weights"
+        with span("loss.flow_warps"):
+            warped_from_l, warped_from_r = self._flow_warps(raw, img_l_pyr, img_r_pyr, flows_both)
+            if diff_weights:
+                diff_bwd, diff_fwd, w_bwd, w_fwd = M.diff_weights(
+                    warped_from_l, img_pyr, warped_from_r
+                )
+            else:
+                # forward-splat ones along the approximate inverse flow
+                # (-flow); pixels receiving no mass are occluded
+                taps = _OCC_TAPS[cfg.flow_occ_impl]
+                occ_fwd = [occlusion_mask_from_flow(-f, taps) for f in flows_fwd]
+                occ_bwd = [occlusion_mask_from_flow(-f, taps) for f in flows_bwd]
 
-        # forward-splat ones along the approximate inverse flow (-flow);
-        # pixels receiving no mass are occluded
-        taps = _OCC_TAPS[cfg.flow_occ_impl]
-        occ_fwd = [occlusion_mask_from_flow(-f, taps) for f in flows_fwd]
-        occ_bwd = [occlusion_mask_from_flow(-f, taps) for f in flows_bwd]
-        valid_fwd = [1.0 - M.all_zero(wr).to(wr.dtype) for wr in warped_from_r]
-        valid_bwd = [1.0 - M.all_zero(wl).to(wl.dtype) for wl in warped_from_l]
-        mask_fwd = M.fuse_masks(valid_fwd, occ_fwd)
-        mask_bwd = M.fuse_masks(valid_bwd, occ_bwd)
-        return {
-            "loss_flow_pixel": L.photometric_loss(img_pyr[:ns], warped_from_l[:ns], mask_bwd[:ns])
-            + L.photometric_loss(img_pyr[:ns], warped_from_r[:ns], mask_fwd[:ns]),
-            "loss_flow_ssim": L.ssim_loss(img_pyr[:ns], warped_from_r[:ns], mask_fwd[:ns], ssim_impl)
-            + L.ssim_loss(img_pyr[:ns], warped_from_l[:ns], mask_bwd[:ns], ssim_impl),
-            "loss_flow_smooth": smooth,
-            "loss_flow_consis": L.flow_consis_loss(flows_fwd[:ns], flows_bwd[:ns], occ_fwd[:ns]),
-        }
+        if diff_weights:
+            with span("loss.terms"):
+                return {
+                    "loss_flow_pixel": L.masked_diff_loss(diff_fwd[:ns], w_fwd[:ns])
+                    + L.masked_diff_loss(diff_bwd[:ns], w_bwd[:ns]),
+                    "loss_flow_ssim": L.ssim_loss(img_pyr[:ns], warped_from_r[:ns], w_fwd[:ns],
+                                                  ssim_impl)
+                    + L.ssim_loss(img_pyr[:ns], warped_from_l[:ns], w_bwd[:ns], ssim_impl),
+                    "loss_flow_smooth": smooth,
+                    "loss_flow_consis": L.flow_consis_loss(flows_fwd[:ns], flows_bwd[:ns],
+                                                           w_fwd[:ns]),
+                }
+
+        with span("loss.masks"):
+            valid_fwd = [1.0 - M.all_zero(wr).to(wr.dtype) for wr in warped_from_r]
+            valid_bwd = [1.0 - M.all_zero(wl).to(wl.dtype) for wl in warped_from_l]
+            mask_fwd = M.fuse_masks(valid_fwd, occ_fwd)
+            mask_bwd = M.fuse_masks(valid_bwd, occ_bwd)
+        with span("loss.terms"):
+            return {
+                "loss_flow_pixel": L.photometric_loss(img_pyr[:ns], warped_from_l[:ns],
+                                                      mask_bwd[:ns])
+                + L.photometric_loss(img_pyr[:ns], warped_from_r[:ns], mask_fwd[:ns]),
+                "loss_flow_ssim": L.ssim_loss(img_pyr[:ns], warped_from_r[:ns], mask_fwd[:ns],
+                                              ssim_impl)
+                + L.ssim_loss(img_pyr[:ns], warped_from_l[:ns], mask_bwd[:ns], ssim_impl),
+                "loss_flow_smooth": smooth,
+                "loss_flow_consis": L.flow_consis_loss(flows_fwd[:ns], flows_bwd[:ns],
+                                                       occ_fwd[:ns]),
+            }
 
     def forward_depth(self, images, K_ms, K_inv_ms):
         """Depth loss pack (dict of [B] vectors): pixel and smoothness, and
@@ -275,9 +296,11 @@ class JointModel(nn.Module):
         img_l, img, img_r = split_stack(images, self.dtype)
 
         # depth on all three frames in one 3B pass (BN stats over the triplet)
-        disp_all = self.depth_net(torch.cat([img_l, img, img_r], 0), ls)
+        with span("net.depth"):
+            disp_all = self.depth_net(torch.cat([img_l, img, img_r], 0), ls)
         disp_l, disp, disp_r = (list(t) for t in zip(*(_split3(d) for d in disp_all)))
-        poses = self.pose_net(torch.cat([img_l, img, img_r], -1))
+        with span("net.pose"):
+            poses = self.pose_net(torch.cat([img_l, img, img_r], -1))
         pose_fwd, pose_bwd = poses[:, 1], poses[:, 0]
 
         img_l, img, img_r = _loss_frames((img_l, img, img_r), ls)
@@ -286,36 +309,41 @@ class JointModel(nn.Module):
         img_r_pyr = image_pyramid(img_r, ns)
 
         consis = cfg.enable_depth_consis
-        rec_l, valid_l, pdepth_l, cdepth_l = multiscale_reconstruction(
-            img_l, K, disp, disp_l, pose_bwd, sample_ref_depth=consis, route=self.warp_route
-        )
-        rec_r, valid_r, pdepth_r, cdepth_r = multiscale_reconstruction(
-            img_r, K, disp, disp_r, pose_fwd, sample_ref_depth=consis, route=self.warp_route
-        )
-        mask_bwd = M.fuse_masks(valid_l, M.texture_masks(img_pyr, rec_l, img_l_pyr))
-        mask_fwd = M.fuse_masks(valid_r, M.texture_masks(img_pyr, rec_r, img_r_pyr))
+        with span("loss.recon"):
+            rec_l, valid_l, pdepth_l, cdepth_l = multiscale_reconstruction(
+                img_l, K, disp, disp_l, pose_bwd, sample_ref_depth=consis, route=self.warp_route
+            )
+            rec_r, valid_r, pdepth_r, cdepth_r = multiscale_reconstruction(
+                img_r, K, disp, disp_r, pose_fwd, sample_ref_depth=consis, route=self.warp_route
+            )
+            tex_bwd = M.texture_masks(img_pyr, rec_l, img_l_pyr)
+            tex_fwd = M.texture_masks(img_pyr, rec_r, img_r_pyr)
+        with span("loss.masks"):
+            mask_bwd = M.fuse_masks(valid_l, tex_bwd)
+            mask_fwd = M.fuse_masks(valid_r, tex_fwd)
 
-        zero = torch.zeros((images.shape[0],), device=images.device)
-        norm = cfg.depth_smooth_norm
-        return {
-            "loss_depth_pixel": L.photometric_loss(img_pyr, rec_l, mask_bwd)
-            + L.photometric_loss(img_pyr, rec_r, mask_fwd),
-            "loss_depth_smooth": L.disp_smooth_loss(img, disp, norm)
-            + L.disp_smooth_loss(img_l, disp_l, norm)
-            + L.disp_smooth_loss(img_r, disp_r, norm),
-            "loss_depth_ssim": (
-                L.ssim_loss(img_pyr, rec_l, mask_bwd, cfg.ssim_impl)
-                + L.ssim_loss(img_pyr, rec_r, mask_fwd, cfg.ssim_impl)
-                if cfg.enable_depth_ssim
-                else zero
-            ),
-            "loss_depth_consis": (
-                L.depth_consis_loss(pdepth_l, cdepth_l, mask_bwd)
-                + L.depth_consis_loss(pdepth_r, cdepth_r, mask_fwd)
-                if consis
-                else zero
-            ),
-        }
+        with span("loss.terms"):
+            zero = torch.zeros((images.shape[0],), device=images.device)
+            norm = cfg.depth_smooth_norm
+            return {
+                "loss_depth_pixel": L.photometric_loss(img_pyr, rec_l, mask_bwd)
+                + L.photometric_loss(img_pyr, rec_r, mask_fwd),
+                "loss_depth_smooth": L.disp_smooth_loss(img, disp, norm)
+                + L.disp_smooth_loss(img_l, disp_l, norm)
+                + L.disp_smooth_loss(img_r, disp_r, norm),
+                "loss_depth_ssim": (
+                    L.ssim_loss(img_pyr, rec_l, mask_bwd, cfg.ssim_impl)
+                    + L.ssim_loss(img_pyr, rec_r, mask_fwd, cfg.ssim_impl)
+                    if cfg.enable_depth_ssim
+                    else zero
+                ),
+                "loss_depth_consis": (
+                    L.depth_consis_loss(pdepth_l, cdepth_l, mask_bwd)
+                    + L.depth_consis_loss(pdepth_r, cdepth_r, mask_fwd)
+                    if consis
+                    else zero
+                ),
+            }
 
     def draw_samples(self, generator: torch.Generator, batch_size: int, hw=None):
         """The index draws of one geom step's sampled losses, int64 on the
@@ -366,18 +394,22 @@ class JointModel(nn.Module):
         b = img.shape[0]
 
         # depth on all three frames in one 3B pass (BN stats over the triplet)
-        disp_all = self.depth_net(torch.cat([img_l, img, img_r], 0), ls)
+        with span("net.depth"):
+            disp_all = self.depth_net(torch.cat([img_l, img, img_r], 0), ls)
         disp_l, disp, disp_r = (list(t) for t in zip(*(_split3(d) for d in disp_all)))
 
-        poses = self.pose_net(torch.cat([img_l, img, img_r], -1))
+        with span("net.pose"):
+            poses = self.pose_net(torch.cat([img_l, img, img_r], -1))
         pose_fwd, pose_bwd = poses[:, 1], poses[:, 0]
 
         # one 3B feature pass + one 2B decoder pass (bwd first, fwd second)
-        feats_all = self.fpyramid(torch.cat([img_l, img, img_r], 0))
-        feat_l, feat, feat_r = zip(*(_split3(f) for f in feats_all))
-        feat_cc = tuple(torch.cat([c, c], 0) for c in feat)
-        feat_lr = tuple(torch.cat(p, 0) for p in zip(feat_l, feat_r))
-        flows_both = self.pwc_model(feat_cc, feat_lr, hw)[ls : ls + ns]
+        with span("net.pyramid"):
+            feats_all = self.fpyramid(torch.cat([img_l, img, img_r], 0))
+        with span("net.pwc"):
+            feat_l, feat, feat_r = zip(*(_split3(f) for f in feats_all))
+            feat_cc = tuple(torch.cat([c, c], 0) for c in feat)
+            feat_lr = tuple(torch.cat(p, 0) for p in zip(feat_l, feat_r))
+            flows_both = self.pwc_model(feat_cc, feat_lr, hw)[ls : ls + ns]
         flows_bwd = [f[:b] for f in flows_both]
         flows_fwd = [f[b:] for f in flows_both]
 
@@ -399,104 +431,109 @@ class JointModel(nn.Module):
 
         # depth/pose reconstruction + dynamic masks from one projection/scale
         consis = cfg.enable_depth_consis
-        rec2, valid_to2, pdepth2, cdepth2, fd2, dyn2, fds2 = multiscale_recon_dynamic(
-            cat2(img_l, img_r), K2, [cat2(d, d) for d in disp],
-            [cat2(dl, dr) for dl, dr in zip(disp_l, disp_r)], pose2, flows2,
-            cfg.flow_consist_alpha, cfg.flow_consist_beta, sample_ref_depth=consis,
-            ref_img_u8=cat2(raw[0], raw[2]) if raw is not None else None,
-            route=self.warp_route,
-        )
-        rec_l, rec_r = zip(*(split2(x) for x in rec2))
-        tex_bwd = M.texture_masks(img_pyr, rec_l, img_l_pyr)
-        tex_fwd = M.texture_masks(img_pyr, rec_r, img_r_pyr)
+        with span("loss.recon"):
+            rec2, valid_to2, pdepth2, cdepth2, fd2, dyn2, fds2 = multiscale_recon_dynamic(
+                cat2(img_l, img_r), K2, [cat2(d, d) for d in disp],
+                [cat2(dl, dr) for dl, dr in zip(disp_l, disp_r)], pose2, flows2,
+                cfg.flow_consist_alpha, cfg.flow_consist_beta, sample_ref_depth=consis,
+                ref_img_u8=cat2(raw[0], raw[2]) if raw is not None else None,
+                route=self.warp_route,
+            )
+            rec_l, rec_r = zip(*(split2(x) for x in rec2))
+            tex_bwd = M.texture_masks(img_pyr, rec_l, img_l_pyr)
+            tex_fwd = M.texture_masks(img_pyr, rec_r, img_r_pyr)
 
         # flow reconstruction of the centre frame (raw uint8 rows at scale 0)
-        warped_from_l, warped_from_r = self._flow_warps(raw, img_l_pyr, img_r_pyr, flows2)
-        occ_bwd, occ_fwd, valid_bwd, valid_fwd = M.occlusion_weights(
-            warped_from_l, img_pyr, warped_from_r
-        )
+        with span("loss.flow_warps"):
+            warped_from_l, warped_from_r = self._flow_warps(raw, img_l_pyr, img_r_pyr, flows2)
+            occ_bwd, occ_fwd, valid_bwd, valid_fwd = M.occlusion_weights(
+                warped_from_l, img_pyr, warped_from_r
+            )
 
-        fd_bwd, fd_fwd = (list(t) for t in zip(*(split2(x) for x in fd2)))
-        dyn_bwd, dyn_fwd = (list(t) for t in zip(*(split2(x) for x in dyn2)))
+        with span("loss.masks"):
+            fd_bwd, fd_fwd = (list(t) for t in zip(*(split2(x) for x in fd2)))
+            dyn_bwd, dyn_fwd = (list(t) for t in zip(*(split2(x) for x in dyn2)))
 
-        # epipolar distance maps + rigid masks (top scale)
-        dist_bwd, dist_fwd = split2(M.epipolar_map(pose2, flows2[0], K2, cat2(K_inv, K_inv)))
+            # epipolar distance maps + rigid masks (top scale)
+            dist_bwd, dist_fwd = split2(M.epipolar_map(pose2, flows2[0], K2, cat2(K_inv, K_inv)))
 
-        fwd_mask = M.fuse_masks(valid_fwd, occ_fwd, dyn_fwd)
-        bwd_mask = M.fuse_masks(valid_bwd, occ_bwd, dyn_bwd)
-        fwd_mask_tex = M.fuse_masks(fwd_mask, tex_fwd)
-        bwd_mask_tex = M.fuse_masks(bwd_mask, tex_bwd)
-        fwd_valid_occ = M.fuse_masks(valid_fwd, occ_fwd)
-        bwd_valid_occ = M.fuse_masks(valid_bwd, occ_bwd)
-        fwd_vo_rigid = M.fuse_masks(fwd_valid_occ, dyn_fwd)
-        bwd_vo_rigid = M.fuse_masks(bwd_valid_occ, dyn_bwd)
-        fwd_vo_dyna = M.fuse_masks(fwd_valid_occ, [1 - m for m in dyn_fwd])
-        bwd_vo_dyna = M.fuse_masks(bwd_valid_occ, [1 - m for m in dyn_bwd])
+            fwd_mask = M.fuse_masks(valid_fwd, occ_fwd, dyn_fwd)
+            bwd_mask = M.fuse_masks(valid_bwd, occ_bwd, dyn_bwd)
+            fwd_mask_tex = M.fuse_masks(fwd_mask, tex_fwd)
+            bwd_mask_tex = M.fuse_masks(bwd_mask, tex_bwd)
+            fwd_valid_occ = M.fuse_masks(valid_fwd, occ_fwd)
+            bwd_valid_occ = M.fuse_masks(valid_bwd, occ_bwd)
+            fwd_vo_rigid = M.fuse_masks(fwd_valid_occ, dyn_fwd)
+            bwd_vo_rigid = M.fuse_masks(bwd_valid_occ, dyn_bwd)
+            fwd_vo_dyna = M.fuse_masks(fwd_valid_occ, [1 - m for m in dyn_fwd])
+            bwd_vo_dyna = M.fuse_masks(bwd_valid_occ, [1 - m for m in dyn_bwd])
 
-        zero = torch.zeros((images.shape[0],), device=images.device)
-        w_dyn = cfg.dyna_photo_weight
-        norm = cfg.depth_smooth_norm
-        loss_pack = {
-            "loss_depth_pixel": L.photometric_loss(img_pyr, rec_l, bwd_mask_tex)
-            + L.photometric_loss(img_pyr, rec_r, fwd_mask_tex),
-            "loss_depth_ssim": (
-                L.ssim_loss(img_pyr, rec_l, bwd_mask_tex, ssim_impl)
-                + L.ssim_loss(img_pyr, rec_r, fwd_mask_tex, ssim_impl)
-                if cfg.enable_depth_ssim
-                else zero
-            ),
-            "loss_depth_smooth": L.disp_smooth_loss(img, disp, norm)
-            + L.disp_smooth_loss(img_l, disp_l, norm)
-            + L.disp_smooth_loss(img_r, disp_r, norm),
-            "loss_depth_consis": (
-                L.depth_consis_loss([x[:b] for x in pdepth2], [x[:b] for x in cdepth2],
-                                    bwd_mask_tex)
-                + L.depth_consis_loss([x[b:] for x in pdepth2], [x[b:] for x in cdepth2],
-                                      fwd_mask_tex)
-                if consis
-                else zero
-            ),
-            "loss_flow_pixel": L.photometric_loss(img_pyr, warped_from_l, bwd_vo_rigid)
-            + L.photometric_loss(img_pyr, warped_from_r, fwd_vo_rigid)
-            + w_dyn * L.photometric_loss(img_pyr, warped_from_l, bwd_vo_dyna)
-            + w_dyn * L.photometric_loss(img_pyr, warped_from_r, fwd_vo_dyna),
-            "loss_flow_ssim": L.ssim_loss(img_pyr, warped_from_l, bwd_valid_occ, ssim_impl)
-            + L.ssim_loss(img_pyr, warped_from_r, fwd_valid_occ, ssim_impl),
-            "loss_flow_smooth": L.flow_smooth_loss(flows_fwd, img_pyr)
-            + L.flow_smooth_loss(flows_bwd, img_pyr),
-            "loss_flow_consis": L.flow_consis_loss(flows_fwd, flows_bwd, occ_fwd),
-            "loss_depth_flow_consis": L.depth_flow_consis_loss(fd_bwd, bwd_mask, 1)
-            + L.depth_flow_consis_loss(fd_fwd, fwd_mask, 1),
-            "loss_epipolar": L.epipolar_loss(dist_bwd, dyn_bwd[0])
-            + L.epipolar_loss(dist_fwd, dyn_fwd[0]),
-            "loss_triangle": zero,
-            "loss_pnp": zero,
-            "loss_eight_point": zero,
-        }
+        with span("loss.terms"):
+            zero = torch.zeros((images.shape[0],), device=images.device)
+            w_dyn = cfg.dyna_photo_weight
+            norm = cfg.depth_smooth_norm
+            loss_pack = {
+                "loss_depth_pixel": L.photometric_loss(img_pyr, rec_l, bwd_mask_tex)
+                + L.photometric_loss(img_pyr, rec_r, fwd_mask_tex),
+                "loss_depth_ssim": (
+                    L.ssim_loss(img_pyr, rec_l, bwd_mask_tex, ssim_impl)
+                    + L.ssim_loss(img_pyr, rec_r, fwd_mask_tex, ssim_impl)
+                    if cfg.enable_depth_ssim
+                    else zero
+                ),
+                "loss_depth_smooth": L.disp_smooth_loss(img, disp, norm)
+                + L.disp_smooth_loss(img_l, disp_l, norm)
+                + L.disp_smooth_loss(img_r, disp_r, norm),
+                "loss_depth_consis": (
+                    L.depth_consis_loss([x[:b] for x in pdepth2], [x[:b] for x in cdepth2],
+                                        bwd_mask_tex)
+                    + L.depth_consis_loss([x[b:] for x in pdepth2], [x[b:] for x in cdepth2],
+                                          fwd_mask_tex)
+                    if consis
+                    else zero
+                ),
+                "loss_flow_pixel": L.photometric_loss(img_pyr, warped_from_l, bwd_vo_rigid)
+                + L.photometric_loss(img_pyr, warped_from_r, fwd_vo_rigid)
+                + w_dyn * L.photometric_loss(img_pyr, warped_from_l, bwd_vo_dyna)
+                + w_dyn * L.photometric_loss(img_pyr, warped_from_r, fwd_vo_dyna),
+                "loss_flow_ssim": L.ssim_loss(img_pyr, warped_from_l, bwd_valid_occ, ssim_impl)
+                + L.ssim_loss(img_pyr, warped_from_r, fwd_valid_occ, ssim_impl),
+                "loss_flow_smooth": L.flow_smooth_loss(flows_fwd, img_pyr)
+                + L.flow_smooth_loss(flows_bwd, img_pyr),
+                "loss_flow_consis": L.flow_consis_loss(flows_fwd, flows_bwd, occ_fwd),
+                "loss_depth_flow_consis": L.depth_flow_consis_loss(fd_bwd, bwd_mask, 1)
+                + L.depth_flow_consis_loss(fd_fwd, fwd_mask, 1),
+                "loss_epipolar": L.epipolar_loss(dist_bwd, dyn_bwd[0])
+                + L.epipolar_loss(dist_fwd, dyn_fwd[0]),
+                "loss_triangle": zero,
+                "loss_pnp": zero,
+                "loss_eight_point": zero,
+            }
 
         if needs_samples(cfg):
-            # one sampled set per direction (2B: bwd, fwd) feeds all three
-            # geometric losses: the top geometric_ratio of the top-scale
-            # matches by flow-consistency score, then the drawn indices
-            disp0 = cat2(disp[0], disp[0])
-            m2, d2 = sample_matches(
-                torch.cat([draws["bwd"], draws["fwd"]]), flows2[0], disp0, fds2[0],
-                cfg.geometric_ratio,
-            )
-            K_inv2 = cat2(K_inv, K_inv)
-            geo = {}
-            if cfg.enable_triangle:
-                geo["loss_triangle"] = self._triangle_loss(
-                    m2, pose2, K2, K_inv2, disp0, cat2(disp_l[0], disp_r[0])
+            with span("loss.sampled"):
+                # one sampled set per direction (2B: bwd, fwd) feeds all three
+                # geometric losses: the top geometric_ratio of the top-scale
+                # matches by flow-consistency score, then the drawn indices
+                disp0 = cat2(disp[0], disp[0])
+                m2, d2 = sample_matches(
+                    torch.cat([draws["bwd"], draws["fwd"]]), flows2[0], disp0, fds2[0],
+                    cfg.geometric_ratio,
                 )
-            if cfg.enable_pnp:
-                geo["loss_pnp"] = self._pnp_loss(m2, d2, pose2, K2, K_inv2)
-            if cfg.enable_eight_point:
-                geo["loss_eight_point"] = self._eight_point_loss(
-                    torch.cat([draws["8_bwd"], draws["8_fwd"]]), m2, pose2, K_inv2
-                )
-            for k, v in geo.items():
-                loss_pack[k] = v[:b] + v[b:]
+                K_inv2 = cat2(K_inv, K_inv)
+                geo = {}
+                if cfg.enable_triangle:
+                    geo["loss_triangle"] = self._triangle_loss(
+                        m2, pose2, K2, K_inv2, disp0, cat2(disp_l[0], disp_r[0])
+                    )
+                if cfg.enable_pnp:
+                    geo["loss_pnp"] = self._pnp_loss(m2, d2, pose2, K2, K_inv2)
+                if cfg.enable_eight_point:
+                    geo["loss_eight_point"] = self._eight_point_loss(
+                        torch.cat([draws["8_bwd"], draws["8_fwd"]]), m2, pose2, K_inv2
+                    )
+                for k, v in geo.items():
+                    loss_pack[k] = v[:b] + v[b:]
 
         aux = {}
         if with_masks:

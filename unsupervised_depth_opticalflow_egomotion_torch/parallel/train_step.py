@@ -16,6 +16,11 @@ modes (``cfg.mode``: flow | depth | geom), with the same four entry points:
   batch ``(images, K_ms, K_inv_ms)``; returns the metrics (the mean of
   every loss in the pack and the weighted ``loss_total``).
 
+The step marks its phases as program spans (``utils/profiler.span``:
+``train_step`` and, nested in it, ``train_step.draws`` / ``.forward`` /
+``.backward`` / ``.allreduce`` / ``.optimizer``), which a profiler session
+records and which cost one flag read each outside a session.
+
 Data parallel (``group``, a ``torch.distributed`` process group; the JAX
 step under a mesh, train_step.py:270-277): each rank steps its shard of the
 global batch on its own replica. BatchNorm takes the global batch's
@@ -51,6 +56,7 @@ from ..config import Config, loss_weights
 from ..models.joint import JointModel, needs_samples
 from ..models.layers import init_weights
 from ..utils.device import resolve_device
+from ..utils.profiler import span
 from .mesh import all_reduce_gradients, all_reduce_metrics, rank_and_world, sync_batch_norm
 
 
@@ -152,23 +158,31 @@ def make_train_step(model: JointModel, cfg: Config, optimizer: torch.optim.Optim
     def train_step(batch, step=None):
         if sampled and step is None:
             raise ValueError("the sampled geom losses need the step number to draw from")
-        draws = step_draws(model, step, batch, rank, world) if sampled else None
-        loss_pack = _forward(model, cfg, batch, draws)
-        total = torch.zeros((), device=batch[0].device)
-        metrics = {}
-        for k, v in loss_pack.items():
-            m = v.mean()
-            metrics[k] = m.detach()
-            total = total + weights[k] * m
-        metrics["loss_total"] = total.detach()
-        optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        if group is not None:
-            all_reduce_gradients(params, group)
-            metrics = all_reduce_metrics(metrics, group)
-        if cfg.grad_clip_norm > 0:
-            clip_by_global_norm(params, cfg.grad_clip_norm)
-        optimizer.step()
+        with span("train_step", step):
+            draws = None
+            if sampled:
+                with span("train_step.draws"):
+                    draws = step_draws(model, step, batch, rank, world)
+            with span("train_step.forward"):
+                loss_pack = _forward(model, cfg, batch, draws)
+                total = torch.zeros((), device=batch[0].device)
+                metrics = {}
+                for k, v in loss_pack.items():
+                    m = v.mean()
+                    metrics[k] = m.detach()
+                    total = total + weights[k] * m
+                metrics["loss_total"] = total.detach()
+            with span("train_step.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            if group is not None:
+                with span("train_step.allreduce"):
+                    all_reduce_gradients(params, group)
+                    metrics = all_reduce_metrics(metrics, group)
+            with span("train_step.optimizer"):
+                if cfg.grad_clip_norm > 0:
+                    clip_by_global_norm(params, cfg.grad_clip_norm)
+                optimizer.step()
         return metrics
 
     return train_step

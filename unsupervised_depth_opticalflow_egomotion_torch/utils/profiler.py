@@ -1,9 +1,13 @@
-"""Wall-clock checkpoints and device traces.
+"""Program spans and device traces.
 
-Port of the JAX package's ``utils/profiler.py``: the same checkpoint API,
-synchronised with ``torch.cuda.synchronize`` on the tracked device in place
-of ``jax.effects_barrier``, and a context over ``torch.profiler`` that
-writes a Chrome trace.
+``span(name)`` marks a region of the program (the training step's phases,
+the networks, the parts of the loss graph) as a range of a ``torch.profiler``
+session, on the same clock as the card's activity, so that a trace can say
+which part of the program the host was in while the card waited. Outside a
+session it does nothing: one read of a flag, no torch call, no sync.
+
+``device_trace(logdir)`` runs such a session over the enclosed region and
+writes it as a Chrome trace, spans included.
 
 Time first and profile last: a ``torch.profiler`` session slows the host
 side of the steps that come after it in the same process, so a timing taken
@@ -14,58 +18,29 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .device import resolve_device
 
+_OFF = contextlib.nullcontext()
 
-class Profiler:
-    """Named wall-clock checkpoints; call ``report()`` for a summary.
 
-    ``device`` (default: CUDA) is the device whose pending work a
-    checkpoint waits for; on the CPU there is none to wait for.
-    """
-
-    def __init__(self, silent: bool = False, device=None):
-        self.silent = silent
-        self.device = resolve_device(device)
-        self.timings: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-        self._last = time.time()
-
-    def reset(self):
-        self._last = time.time()
-
-    def report(self, name: str, sync: bool = True):
-        """Record elapsed time since the previous checkpoint under ``name``."""
-        if sync and self.device.type == "cuda":
-            # finish the queued device work so the interval is attributable
-            torch.cuda.synchronize(self.device)
-        now = time.time()
-        dt = now - self._last
-        self.timings[name] = self.timings.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
-        self._last = now
-        if not self.silent:
-            print(f"[profiler] {name}: {dt * 1000:.2f} ms")
-        return dt
-
-    def summary(self) -> str:
-        lines = []
-        for name, total in sorted(self.timings.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name:>24}: total {total:8.3f}s  avg {total / n * 1e3:8.2f}ms  n={n}")
-        return "\n".join(lines)
+def span(name: str, args=None):
+    """A context that records ``name`` (with ``args``, as text) as a range of
+    the running profiler session; a shared no-op context when none runs."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name, None if args is None else str(args))
 
 
 @contextlib.contextmanager
 def device_trace(logdir: str, device=None):
-    """A ``torch.profiler`` trace of the enclosed region, host ops and (on
-    CUDA, the default) the card's kernels, written as a Chrome trace to
-    ``<logdir>/trace.json`` (chrome://tracing, Perfetto). Returns the path
-    through the context's target."""
+    """A ``torch.profiler`` trace of the enclosed region, host ops, program
+    spans and (on CUDA, the default) the card's kernels, written as a Chrome
+    trace to ``<logdir>/trace.json`` (chrome://tracing, Perfetto). Returns
+    the path through the context's target."""
     dev = resolve_device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
