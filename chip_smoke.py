@@ -821,7 +821,9 @@ def _zero_counts():
 
 
 def _check_run(run, kernels, metrics, per_step, steps, timing) -> dict:
-    """After ``steps`` steps of ``run`` since ``_zero_counts``: finite
+    """After ``steps`` runs of the step's body (``TrainStep.body_runs``: its
+    calls op by op and its graph's capture; a replay launches nothing from
+    the host) of ``run`` since ``_zero_counts``: finite
     losses, moved parameters of the networks the mode trains, bit-equal
     parameters of the others, the exact launch count of every kernel
     (``per_step``: kernel -> launches a step; the others must stay at
@@ -852,7 +854,7 @@ def _check_run(run, kernels, metrics, per_step, steps, timing) -> dict:
         fail(f"{name}: launches with signatures (dtype codes, sizes) that the kernels phase "
              f"did not hold against the plain version: {unchecked}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    log(f"train {name}: {steps} steps, {timing}peak memory {peak_gb:.2f} GiB, "
+    log(f"train {name}: {steps} body runs, {timing}peak memory {peak_gb:.2f} GiB, "
         f"launches/step {json.dumps(per_step)}, losses {json.dumps(values)}")
     return launches
 
@@ -860,11 +862,12 @@ def _check_run(run, kernels, metrics, per_step, steps, timing) -> dict:
 def _drive(run, per_step, warmup, timed):
     """``warmup + timed`` train steps of ``run``, checked by ``_check_run``
     (the launch counts zeroed just before, read just after). Returns
-    (launches, ms per step or None, peak GiB)."""
+    (launches, ms per step or None, peak GiB, the body's runs)."""
     import torch
 
     step, batch = run["step"], run["batch"]
     kernels = _zero_counts()
+    runs0 = step.body_runs
     for _ in range(warmup):
         metrics = step(batch, run["steps"])  # the step number seeds the sampled losses' draws
         run["steps"] += 1
@@ -876,28 +879,30 @@ def _drive(run, per_step, warmup, timed):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / timed * 1e3 if timed else None
     timing = f"{timed} timed steps, {ms:.1f} ms/step, " if timed else ""
-    launches = _check_run(run, kernels, metrics, per_step, warmup + timed, timing)
-    return launches, ms, torch.cuda.max_memory_allocated() / 2**30
+    runs = step.body_runs - runs0
+    launches = _check_run(run, kernels, metrics, per_step, runs, timing)
+    return launches, ms, torch.cuda.max_memory_allocated() / 2**30, runs
 
 
 def _bench_drive(run, per_step, iters, count_flops):
     """``bench.run`` of ``run`` (``_start_bench``): the FLOP-count step if
     ``count_flops``, the warm-up and ``iters`` timed steps, checked by
-    ``_check_run``. Returns (bench.py's line, launches, steps, ms per step,
-    peak GiB)."""
+    ``_check_run``. Returns (bench.py's line, launches, the step body's
+    runs, ms per step, peak GiB)."""
     import torch
 
     from unsupervised_depth_opticalflow_egomotion_torch import bench
 
     b = run["bench"]
     kernels = _zero_counts()
-    steps0 = b.steps
+    runs0 = b.train_step.body_runs
     line = bench.run(b, run["metric"], iters, count_flops=count_flops)
     ms = b.seconds_per_step * 1e3
     count = " after a FLOP-count step" if count_flops else ""
-    launches = _check_run(run, kernels, b.metrics, per_step, b.steps - steps0,
+    runs = b.train_step.body_runs - runs0
+    launches = _check_run(run, kernels, b.metrics, per_step, runs,
                           f"{iters} timed steps{count} (bench.run), {ms:.1f} ms/step, ")
-    return line, launches, b.steps - steps0, ms, torch.cuda.max_memory_allocated() / 2**30
+    return line, launches, runs, ms, torch.cuda.max_memory_allocated() / 2**30
 
 
 def _metric_line(metric, ms, smi):
@@ -928,13 +933,13 @@ def phase_train(smi: str):
     torch.backends.cudnn.benchmark = True
     corr = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5}
     ssim = {"ssim_fwd": 6, "ssim_bwd": 6}
-    by_path = {}  # path -> (launches by kernel, steps) of its first run
+    by_path = {}  # path -> (launches by kernel, the step body's runs) of its first run
     lines = {}  # path -> bench.py's line of its first run
 
     def drive(run, per_step, warmup, timed, path=None):
-        launches, ms, peak = _drive(run, per_step, warmup, timed)
+        launches, ms, peak, runs = _drive(run, per_step, warmup, timed)
         if path is not None:
-            by_path[path] = (launches, warmup + timed)
+            by_path[path] = (launches, runs)
         return ms, peak
 
     def bench_drive(run, per_step, iters, count_flops, path=None):
@@ -1011,8 +1016,8 @@ def phase_train(smi: str):
     ms, _ = bench_drive(run, geom_k, 10, True, "geom_int8")
     steps = by_path["geom_int8"][1]
     if ti8.INT_MM.launches - mm_before != 20 * steps:
-        fail(f"geom encoder_int8: {ti8.INT_MM.launches - mm_before} int8 GEMMs in {steps} steps, "
-             "expected 20 a step")
+        fail(f"geom encoder_int8: {ti8.INT_MM.launches - mm_before} int8 GEMMs in {steps} "
+             "body runs, expected 20 a step")
     if lines["geom_int8"]["flops_per_step"] != lines["geom"]["flops_per_step"]:
         fail(f"geom encoder_int8: flops_per_step {lines['geom_int8']['flops_per_step']}, the "
              f"default's {lines['geom']['flops_per_step']}")
@@ -1278,7 +1283,8 @@ def phase_cli(smi: str, geom_ms: float, root: str) -> float:
         MetricLogger.add_scalars = original
     per_step = {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
                 "ssim_fwd": 6, "ssim_bwd": 6}
-    want = {n: per_step.get(n, 0) * 8 for n in kernels}
+    # 8 steps: two op by op, the graph's capture, five replays
+    want = {n: per_step.get(n, 0) * 3 for n in kernels}
     if launches != want:
         fail(f"cli geom: kernel launches {launches}, expected {want}")
     # steps 3-4 and 7-8: the windows without a checkpoint save (at 4 and 8,

@@ -229,3 +229,29 @@ def test_resume_is_bit_for_bit(tmp_path):
     step = make_train_step(model, cfg, opt)
     step(batches[2])
     _assert_state_equal(_state(model, opt), straight)
+
+
+def test_restore_keeps_adam_capturable_as_built(tmp_path):
+    """A state saved by a graphed step's Adam (``capturable``, which the
+    step turns on at its capture) restores into a fresh Adam that stays
+    torch's default, with its state as saved and its step counts on the
+    CPU; the flag follows the optimizer restored into, not the saving run."""
+    cfg = _cfg(mode="depth")
+    model, opt = init_state(cfg, "cpu")
+    _fake_step(model, opt, 3)
+    mgr = tckpt.CheckpointManager(str(tmp_path))
+    mgr.save(1, model, opt)
+    path = mgr.path(1)
+    saved = torch.load(path, weights_only=True)
+    for g in saved["optimizer"]["param_groups"]:
+        g["capturable"] = True
+    torch.save(saved, path)
+
+    model2, opt2 = init_state(cfg, "cpu")
+    assert mgr.restore(model2, opt2) == 1
+    assert all(g["capturable"] is False for g in opt2.param_groups)
+    assert all(st["step"].device.type == "cpu" for st in opt2.state.values())
+    _assert_state_equal(_state(model2, opt2), _state(model, opt))
+    _fake_step(model, opt, 4)
+    _fake_step(model2, opt2, 4)
+    _assert_state_equal(_state(model2, opt2), _state(model, opt))

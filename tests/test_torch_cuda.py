@@ -7,6 +7,13 @@ PyTorch; there, skip the JAX-bound ``tests/conftest.py``:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import copy
+import os
+
+# cuBLAS's deterministic workspace, read once when the process first uses
+# cuBLAS (the graphed step's test compares with deterministic algorithms)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +23,13 @@ from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume as tc
 from unsupervised_depth_opticalflow_egomotion_torch.ops import splat as tsp
 from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as tss
 from unsupervised_depth_opticalflow_egomotion_torch.ops import warp as tw
-from unsupervised_depth_opticalflow_egomotion_torch.parallel import init_state, make_train_step
+from unsupervised_depth_opticalflow_egomotion_torch.parallel import (
+    init_state,
+    make_optimizer,
+    make_train_step,
+)
+from unsupervised_depth_opticalflow_egomotion_torch.parallel import train_step as tts
+from unsupervised_depth_opticalflow_egomotion_torch.parallel.train_step import WARMUP_CALLS
 
 pytestmark = [pytest.mark.kernels, pytest.mark.cuda]
 
@@ -358,8 +371,8 @@ def test_splat_kernel_matches_plain_on_card(cuda, kind, offset, dtype, bhw):
     assert mask.min() >= 0 and mask.max() <= 1 and not mask.requires_grad
 
 
-def _batch(b, h, w, dev):
-    rng = np.random.RandomState(0)
+def _batch(b, h, w, dev, seed=0):
+    rng = np.random.RandomState(seed)
     images = torch.from_numpy((rng.rand(b, 3 * h, w, 3) * 255).astype(np.uint8))
     K = np.array([[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1]], np.float32)
     K_ms = np.stack([np.diag([1 / 2**s, 1 / 2**s, 1.0]).astype(np.float32) @ K for s in range(3)])
@@ -480,3 +493,94 @@ def test_int8_conv_card_counts_its_own_k(cuda):
         counts.append((matrix.get_total_flops(), kernels.by_function))
     want = 2 * (2 * 8 * 12) * 8 * 147
     assert counts == [(0, {"int8_conv": want}), (want, {})]
+
+
+@pytest.fixture
+def deterministic(cuda):
+    """Deterministic algorithms on both sides of a comparison: cuDNN's
+    default algorithms, no autotuning, and torch's deterministic kernels in
+    place of its atomic-add backward ones. Two op-by-op runs from one state
+    then agree bit for bit; without them, six geom steps at 64x128 drift by
+    0.12 in the depth net's change (NVIDIA H100, PERF.md section 6)."""
+    was = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    # warn_only: the kernels with no deterministic form run as they are
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield cuda
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = was[:2]
+    torch.use_deterministic_algorithms(was[2], warn_only=was[3])
+
+
+@pytest.mark.parametrize("overrides", [{"mode": "flow"}, {"mode": "geom"},
+                                       {"mode": "geom", "encoder_int8": True}])
+def test_graphed_step_follows_the_eager_step(deterministic, overrides):
+    """Six steps on six batches at 64x128 b2 bf16 from the same weights,
+    graphed (two op by op, the capture, three replays) and op by op, whose
+    Adam turns capturable at the same call as the graph's (the flag changes
+    Adam's rounding): every step's losses and, after the six, every
+    parameter and buffer are bit-equal. The batches' losses differ, so a
+    replay that read the captured batch would fail. Each call's metrics are
+    new tensors with new values."""
+    cuda = deterministic
+    cfg = Config(img_hw=(64, 128), batch_size=2, **overrides)
+    model, opt = init_state(cfg)
+    twin = copy.deepcopy(model)
+    twin_opt = make_optimizer(cfg, twin)
+    step = make_train_step(model, cfg, opt)
+    eager = make_train_step(twin, cfg, twin_opt).eager
+    # another seed and contrast each, so that batches' losses differ
+    batches = [(((b[0].float() * (0.3 + 0.14 * seed)).to(torch.uint8)), *b[1:])
+               for seed, b in ((s, _batch(2, 64, 128, cuda, s)) for s in range(6))]
+    got = []
+    for i, batch in enumerate(batches):
+        if i == WARMUP_CALLS:
+            tts._make_capturable(twin_opt)
+        got.append(step(batch, i))
+        want = eager(batch, i)
+        assert all(g["capturable"] == (i >= WARMUP_CALLS) for g in opt.param_groups), i
+        assert got[-1].keys() == want.keys()
+        for k in want:
+            assert torch.equal(got[-1][k], want[k]), (i, k, float(got[-1][k]), float(want[k]))
+        if i > WARMUP_CALLS:
+            assert any(not torch.isclose(want[k], captured[k], rtol=5e-3) for k in want), i
+        if i == WARMUP_CALLS:
+            captured = {k: v.clone() for k, v in want.items()}
+    torch.cuda.synchronize()
+    assert step.graph is not None and step.body_runs == WARMUP_CALLS + 1
+    assert all(st["step"].is_cuda for st in opt.state.values())
+    for (k, a), b in zip(model.state_dict().items(), twin.state_dict().values()):
+        assert torch.equal(a, b), k
+    totals = [g["loss_total"] for g in got]
+    assert len({t.data_ptr() for t in totals}) == len(totals)
+    assert len({float(t) for t in totals}) == len(totals)
+
+
+def test_replayed_steps_in_a_profiler_session(cuda):
+    """Each replayed step shows one ``train_step.replay`` span and one graph
+    launch, and the hand-written kernels it replays appear by name among
+    the device activities."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = Config(img_hw=(64, 128), batch_size=2, mode="flow")
+    model, opt = init_state(cfg)
+    step = make_train_step(model, cfg, opt)
+    batch = _batch(2, 64, 128, cuda)
+    for i in range(3):
+        step(batch, i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(3, 5):
+            step(_batch(2, 64, 128, cuda, i), i)
+        torch.cuda.synchronize()
+    host = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    device = {e.name for e in prof.events() if e.device_type != DeviceType.CPU}
+    assert host.count("train_step") == host.count("train_step.replay") == 2
+    assert "train_step.capture" not in host and "train_step.forward" not in host
+    assert sum(n in ("cudaGraphLaunch", "cuGraphLaunch") for n in host) == 2
+    for kernel in ("warp_gather_kernel", "corr_fwd_kernel", "corr_bwd_kernel",
+                   "ssim_fwd_kernel", "ssim_bwd_kernel"):
+        assert any(kernel in n for n in device), kernel

@@ -18,8 +18,9 @@ The step: ``Config(img_hw=(256, 832), compute_dtype="bfloat16", ...)``,
 weights from the port's seed-0 initialisation (``parallel.init_state``),
 uint8 frames ``[B, 3H, W, 3]`` from ``np.random.RandomState(0)`` and the K
 pyramid of fx 241, fy 245. One step counts the FLOPs, ``WARMUP_STEPS`` warm
-up (cuDNN picks its algorithms), then ``iters`` steps are timed on the host
-clock; fetching the last ``loss_total`` forces completion.
+up (cuDNN picks its algorithms; on a card the third captures the step's
+CUDA graph), then ``iters`` steps are timed on the host clock; fetching the
+last ``loss_total`` forces completion.
 
 The line: ``metric`` (``bench.py``'s string for the same settings, with its
 literal ``b8``), ``value`` (frames/s on the card: this process's one card),
@@ -62,7 +63,7 @@ from .utils.hardware import peaks
 
 BASELINE_A100_FPS = 40.0  # bench.py's anchor (BASELINE.md, "Reference throughput")
 HW = (256, 832)
-WARMUP_STEPS = 2
+WARMUP_STEPS = 3  # the step's two calls op by op and its graph's capture
 
 
 @dataclass(frozen=True)
@@ -161,10 +162,13 @@ class Bench:
 
     def count_flops(self) -> tuple[int, int]:
         """One step under ``FlopCounterMode`` and ``ops/flops.counting()``:
-        (the matrix work's FLOPs, the kernels' functions' FLOPs)."""
+        (the matrix work's FLOPs, the kernels' functions' FLOPs). The step
+        runs op by op (``TrainStep.eager``): a CUDA graph's replay
+        dispatches nothing to count."""
         with FlopCounterMode(display=False, custom_mapping=MATRIX_MAPPING) as matrix, \
                 kernel_flops.counting() as kernels:
-            self.step()
+            self.metrics = self.train_step.eager(self.batch, self.steps)
+            self.steps += 1
             float(self.metrics["loss_total"])
         return matrix.get_total_flops(), kernels.total
 

@@ -163,7 +163,8 @@ def rigid_projection(depth, pose, intrinsics):
     valid [B,H,W,1] f32, computed_depth [B,H,W,1], rigid_flow [B,H,W,2]).
     """
     _, h, w, _ = depth.shape
-    k_inv = torch.linalg.inv(intrinsics)
+    # inv_ex: linalg.inv's kernel without its error check, a sync on CUDA
+    k_inv = torch.linalg.inv_ex(intrinsics)[0]
     cam_coords = pixel2cam(depth[..., 0], k_inv)
     proj = intrinsics @ pose_vec2mat(pose.float())
     xp, yp, z = _project(cam_coords, proj)

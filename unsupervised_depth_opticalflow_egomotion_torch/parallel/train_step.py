@@ -21,6 +21,17 @@ The step marks its phases as program spans (``utils/profiler.span``:
 ``.backward`` / ``.allreduce`` / ``.optimizer``), which a profiler session
 records and which cost one flag read each outside a session.
 
+On a card, one process and no sampled losses, the step is one CUDA graph
+(``TrainStep``): the first two calls run op by op on a side stream (they
+warm up cuDNN's autotuning and Adam's state), the third captures the same
+code (forward, weighted sum, ``backward()``, ``optimizer.step()``) and
+replays it, and every later call copies its batch into the graph's input
+buffers and replays (spans ``train_step.capture`` and
+``train_step.replay`` inside ``train_step``). At the capture Adam turns
+``capturable`` (its step counts move to the card). The CPU, a process group
+(NCCL's all-reduce) and the sampled losses (CPU-drawn indices each step)
+keep the step op by op, with torch's default Adam.
+
 Data parallel (``group``, a ``torch.distributed`` process group; the JAX
 step under a mesh, train_step.py:270-277): each rank steps its shard of the
 global batch on its own replica. BatchNorm takes the global batch's
@@ -49,6 +60,8 @@ where optax's zero gradient leaves them.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -143,7 +156,7 @@ def _forward(model: JointModel, cfg: Config, batch, draws=None):
 
 
 def make_train_step(model: JointModel, cfg: Config, optimizer: torch.optim.Optimizer,
-                    group=None):
+                    group=None) -> "TrainStep":
     """One training step of ``cfg.mode``: ``step(batch, step=None) ->
     metrics`` (device scalars). ``step`` (the number of steps taken before
     this one) seeds the draws of the sampled geom losses, and must be given
@@ -155,34 +168,166 @@ def make_train_step(model: JointModel, cfg: Config, optimizer: torch.optim.Optim
     rank, world = rank_and_world(group)
     sync_batch_norm(model, group)
 
-    def train_step(batch, step=None):
+    def body(batch, step):
         if sampled and step is None:
             raise ValueError("the sampled geom losses need the step number to draw from")
-        with span("train_step", step):
-            draws = None
-            if sampled:
-                with span("train_step.draws"):
-                    draws = step_draws(model, step, batch, rank, world)
-            with span("train_step.forward"):
-                loss_pack = _forward(model, cfg, batch, draws)
-                total = torch.zeros((), device=batch[0].device)
-                metrics = {}
-                for k, v in loss_pack.items():
-                    m = v.mean()
-                    metrics[k] = m.detach()
-                    total = total + weights[k] * m
-                metrics["loss_total"] = total.detach()
-            with span("train_step.backward"):
-                optimizer.zero_grad(set_to_none=True)
-                total.backward()
-            if group is not None:
-                with span("train_step.allreduce"):
-                    all_reduce_gradients(params, group)
-                    metrics = all_reduce_metrics(metrics, group)
-            with span("train_step.optimizer"):
-                if cfg.grad_clip_norm > 0:
-                    clip_by_global_norm(params, cfg.grad_clip_norm)
-                optimizer.step()
+        draws = None
+        if sampled:
+            with span("train_step.draws"):
+                draws = step_draws(model, step, batch, rank, world)
+        with span("train_step.forward"):
+            loss_pack = _forward(model, cfg, batch, draws)
+            total = torch.zeros((), device=batch[0].device)
+            metrics = {}
+            for k, v in loss_pack.items():
+                m = v.mean()
+                metrics[k] = m.detach()
+                total = total + weights[k] * m
+            metrics["loss_total"] = total.detach()
+        with span("train_step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            total.backward()
+        if group is not None:
+            with span("train_step.allreduce"):
+                all_reduce_gradients(params, group)
+                metrics = all_reduce_metrics(metrics, group)
+        with span("train_step.optimizer"):
+            if cfg.grad_clip_norm > 0:
+                clip_by_global_norm(params, cfg.grad_clip_norm)
+            optimizer.step()
         return metrics
 
-    return train_step
+    return TrainStep(body, optimizer, graphable=group is None and not sampled)
+
+
+# calls of a graphed step that run op by op before the one that captures
+WARMUP_CALLS = 2
+
+
+class TrainStep:
+    """The training step: op by op, or on a card as one CUDA graph.
+
+    The graph is used when the batch lies on a card and the step has no
+    process group and no sampled losses. Calls 0 and 1 then run ``eager``
+    on a side stream; call 2 captures ``eager``'s body into a
+    ``torch.cuda.CUDAGraph`` over input buffers that copy its batch, and
+    replays it; every later call copies its batch into those buffers and
+    replays. The metrics are one tensor inside the graph, which the next
+    replay overwrites: each call returns views of its own clone. After the
+    capture a batch of another shape, dtype or device than the captured one
+    is refused (``ValueError``). Adam turns ``capturable`` at the capture.
+
+    The graph holds the addresses of the model's parameters and buffers and
+    of Adam's state: neither the model nor the optimizer may be rebound
+    after the third call (no ``load_state_dict``, no new parameter tensor).
+    A new step on the same model and optimizer warms up and captures
+    afresh; the old one's graph and memory pool go with the old object
+    (its gradients with the new step's first ``zero_grad``).
+    """
+
+    def __init__(self, body, optimizer, graphable: bool):
+        self._body = body
+        self.optimizer = optimizer
+        self.graphable = graphable
+        self.body_runs = 0  # calls that ran the body on the host (eager, or the capture)
+        self.warm_calls = 0
+        self.stream = None
+        self.graph = None
+        self.static_in = None  # the graph's input buffers
+        self.static_out = None  # the graph's metrics, stacked
+        self.keys = None
+
+    def eager(self, batch, step=None) -> dict:
+        """The step op by op on the current stream: what the graph captures."""
+        self.body_runs += 1
+        with span("train_step", step):
+            return self._body(batch, step)
+
+    def __call__(self, batch, step=None) -> dict:
+        if not (self.graphable and _on_card(batch)):
+            return self.eager(batch, step)
+        if self.graph is not None:
+            return self._replay(batch, step)
+        if self.warm_calls < WARMUP_CALLS:
+            self.warm_calls += 1
+            if self.stream is None:
+                self.stream = _new_stream(batch[0].device)
+            with _side_stream(self.stream):
+                return self.eager(batch, step)
+        return self._capture(batch, step)
+
+    def _check_fits(self, batch):
+        """Refuse a batch that the graph's input buffers cannot take as it
+        is (``copy_`` would broadcast or convert it)."""
+        def sig(ts):
+            return [(tuple(t.shape), t.dtype, t.device) for t in ts]
+
+        if sig(batch) != sig(self.static_in):
+            raise ValueError(f"the step's CUDA graph was captured for batches {sig(self.static_in)}, "
+                             f"not {sig(batch)}")
+
+    def _capture(self, batch, step) -> dict:
+        with span("train_step", step), span("train_step.capture"):
+            self.static_in = tuple(t.clone() for t in batch)
+            _make_capturable(self.optimizer)
+            # backward() then allocates the gradients from the graph's pool
+            self.optimizer.zero_grad(set_to_none=True)
+
+            def captured():
+                self.body_runs += 1
+                metrics = self._body(self.static_in, step)
+                return list(metrics), torch.stack(list(metrics.values()))
+
+            self.graph, (self.keys, self.static_out) = _capture(captured, self.stream)
+            return self._launch()
+
+    def _replay(self, batch, step) -> dict:
+        self._check_fits(batch)
+        with span("train_step", step), span("train_step.replay"):
+            for buf, t in zip(self.static_in, batch):
+                buf.copy_(t)
+            return self._launch()
+
+    def _launch(self) -> dict:
+        self.graph.replay()
+        return dict(zip(self.keys, self.static_out.clone().unbind()))
+
+
+def _on_card(batch) -> bool:
+    return batch[0].is_cuda
+
+
+def _make_capturable(optimizer):
+    """Adam ``capturable``, its step counts on the parameters' device, so
+    that a CUDA graph can hold ``optimizer.step()``."""
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(p.device)
+
+
+def _new_stream(device):
+    return torch.cuda.Stream(device)
+
+
+@contextlib.contextmanager
+def _side_stream(stream):
+    """The block's work on ``stream``, after the current stream's work so
+    far and before its work to come."""
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        yield
+    current.wait_stream(stream)
+
+
+def _capture(fn, stream):
+    """``fn()`` captured on ``stream`` into a new CUDA graph: (graph, what
+    ``fn`` returned). Only this thread's unsafe calls break the capture (a
+    data loader's threads may go on meanwhile)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        out = fn()
+    return graph, out

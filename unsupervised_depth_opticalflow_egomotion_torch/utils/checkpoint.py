@@ -160,7 +160,20 @@ class CheckpointManager:
             )
         state = self.load(step)
         model.load_state_dict(state["model"])
+        capturable = [g.get("capturable", False) for g in optimizer.param_groups]
         optimizer.load_state_dict(state["optimizer"])
+        # a step that captured a CUDA graph saves its Adam capturable, with
+        # the step counts on the card (parallel.train_step): keep the flag as
+        # the optimizer holds it, and the step counts where that flag keeps
+        # them (the parameters' device if capturable, else the CPU)
+        for group, was in zip(optimizer.param_groups, capturable):
+            if "capturable" not in group:
+                continue
+            group["capturable"] = was
+            for p in group["params"]:
+                st = optimizer.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(p.device if was else "cpu")
         return int(state["step"])
 
 
