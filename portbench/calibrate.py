@@ -78,14 +78,14 @@ def program_readings(cfg, weights, batches, device, fault=None) -> dict:
 def calibrate(cell, seeds, n_controls: int, device, emit=print) -> list:
     cfg = cell.cfg
     n = int(cell.traffic["checked_steps"])
-    shapes = parameter_shapes(cfg)
+    shapes = parameter_shapes(cell.reference, cfg)
     int8_control = cfg["mode"] in ("geom", "depth")
     rows = []
     for k, seed in enumerate(seeds):
         weights = make_weights(shapes, seed, device)
         feed = feeds.make_feed(cell.traffic, cfg, seed, device)
         batches = feed.checked(n)
-        ref = reference_steps(cfg, weights, batches, device)
+        ref = reference_steps(cell.reference, cfg, weights, batches, device)
         runs = [("program", lambda: program_readings(cfg, weights, batches, device))]
         if k < n_controls:
             # the look: the program's own f32 path against the reference
@@ -95,7 +95,7 @@ def calibrate(cell, seeds, n_controls: int, device, emit=print) -> list:
                 runs.append(("control_int8", lambda: program_readings(
                     dict(cfg, encoder_int8=True), weights, batches, device)))
             runs.append(("control_fp8_ref", lambda: reference_steps(
-                cfg, weights, batches, device, fake_quant=fp8_fake_quant)))
+                cell.reference, cfg, weights, batches, device, fake_quant=fp8_fake_quant)))
             runs.append(("half_batch", lambda: program_readings(
                 cfg, weights, batches, device, "half_batch")))
             runs.append(("unchanged", lambda: program_readings(

@@ -18,8 +18,17 @@ so a function whose output feeds no loss adds only its forward.
 Bytes of one launch (each input read once, each output written once, ``esz``
 the element size): ``corr_fwd`` 2 P C + 81 P, each of ``corr_bwd_df1`` and
 ``corr_bwd_df2`` 81 P + 2 P C, with P the pixels of the batch; ``ssim_fwd``
-3 N and ``ssim_bwd`` 5 N, with N the elements. The cost volume's operations
-run at the peak of its input type; SSIM's at the f32 peak (CUDA cores).
+3 N and ``ssim_bwd`` 5 N, with N the elements; the warp-gather kernels
+(``warp_bytes``) over N output pixels of a three-channel source of as many
+pixels. The cost volume's operations run at the peak of its input type;
+SSIM's and the warp's at the f32 peak (CUDA cores).
+
+The warp's three kernels (the port's ``csrc/warp_gather.cu``) at their
+operations an output pixel: ``warp_gather``, the forward that also writes
+the six derivative planes, 105 (its backward is elementwise on the planes);
+``warp_gather_nograd`` 60 and ``warp_gather_bwd`` 90, the forward and the
+re-gather backward of ``warp_impl="pallas"``. The reference's ``warp`` calls
+count 60 forward and 90 backward whatever the route (the FLOP count above).
 """
 
 from __future__ import annotations
@@ -31,6 +40,10 @@ WARP_BWD_FLOPS_PER_PIXEL = 90
 SSIM_FWD_FLOPS = 70
 SSIM_BWD_FLOPS = 150
 SPLAT_FLOPS_PER_PIXEL = 20
+# a warp-gather kernel's operations an output pixel, by kernel
+WARP_KERNEL_FLOPS_PER_PIXEL = {"warp_gather": 105,
+                               "warp_gather_nograd": WARP_NOGRAD_FLOPS_PER_PIXEL,
+                               "warp_gather_bwd": WARP_BWD_FLOPS_PER_PIXEL}
 
 # NVIDIA H100 SXM data sheet, dense rates: HBM3 3.35 TB/s; bf16 989 TFLOP/s
 # (tensor cores); f32 67 TFLOP/s (CUDA cores)
@@ -61,6 +74,19 @@ def corr_bytes(b: int, h: int, w: int, c: int, md: int, esz: int) -> tuple[int, 
     """(forward, each backward half) bytes of one cost-volume launch."""
     pix, nd = b * h * w, (2 * md + 1) ** 2
     return 2 * pix * c * esz + pix * nd * esz, pix * nd * esz + 2 * pix * c * esz
+
+
+def warp_bytes(kernel: str, pixels: int, esz: int) -> int:
+    """Bytes of one launch of the warp-gather ``kernel`` over ``pixels``
+    output pixels: the source's three channels at one byte each (the frames
+    as they come, uint8: the least a route can read) and the coordinates
+    (two f32) read; the three values and the weight sum written at ``esz``;
+    ``warp_gather`` also writes six f32 derivative planes; ``warp_gather_bwd``
+    reads the four cotangents at ``esz`` in place of writing the values, and
+    writes two f32 coordinate gradients."""
+    n = pixels
+    extra = {"warp_gather": 24 * n, "warp_gather_nograd": 0, "warp_gather_bwd": 8 * n}[kernel]
+    return 3 * n + 8 * n + 4 * n * esz + extra
 
 
 def bound_s(nbytes: float, flops: float, flops_dtype: str, device_name: str) -> float:

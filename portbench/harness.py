@@ -2,10 +2,26 @@
 span, and the check against the plain reference.
 
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``: a configuration
-(``configs/<config>.json``, the port's ``Config`` as it is run) under a
-traffic mix (``traffic/<traffic>.json``). Its limits are in
-``limits/<cell>.json`` and each per-layer metric is read by
-``metrics/<metric>.py``; all are found by name.
+(``configs/<config>.json``, the port's ``Config`` as it is run, and the
+plain reference it is checked against) under a traffic mix
+(``traffic/<traffic>.json``). Its limits are in ``limits/<cell>.json`` and
+each per-layer metric is read by ``metrics/<metric>.py``; all are found by
+name. A new configuration comes in as files and entries, with no edit here:
+
+- ``configs/<config>.json``: the ``Config`` fields under ``"config"``, and
+  under ``"reference"`` its reference class, ``"<module>.<Class>"`` of
+  ``reference/`` (default ``"joint.JointReference"``);
+- ``reference/<module>.py``: that class, to the contract in
+  ``reference/__init__.py``, where no existing class computes the objective;
+- ``limits/<cell>.json``: the numbers its check compares, each with its
+  limit (``python3 -m portbench.calibrate``);
+- ``traffic/<traffic>.json``, where no existing traffic mix fits;
+- ``metrics/<metric>.py``, one reader for each new per-layer metric;
+- its entries in ``BENCHMARK.json``: the configuration, its cells, and
+  its new metrics.
+
+Which model the port builds for a configuration is the port's business
+(``init_state(Config)``).
 
 The timed path is the port's training step,
 ``parallel.make_train_step(model, cfg, optimizer)`` on the model and Adam
@@ -42,12 +58,12 @@ from unsupervised_depth_opticalflow_egomotion_torch.parallel import init_state, 
 
 from . import check, feeds
 from .flops import KernelCalls, peaks
-from .reference.joint import JointReference
 from .reference.step import leaf_norms, reference_steps
 from .trace import STEP_SPAN, Trace
 
 PKG = Path(__file__).resolve().parent
 ROOT = PKG.parent
+DEFAULT_REFERENCE = "joint.JointReference"
 
 
 # ------------------------------------------------------------------ the cell
@@ -61,7 +77,7 @@ def load_cell(name: str) -> SimpleNamespace:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == work["config"])
     with open(ROOT / conf["file"]) as f:
-        cfg = json.load(f)["config"]
+        conf_file = json.load(f)
     with open(PKG / "limits" / f"{name}.json") as f:
         limits = json.load(f)
 
@@ -69,8 +85,24 @@ def load_cell(name: str) -> SimpleNamespace:
         return [m for m in metrics if "workloads" not in m or name in m["workloads"]]
 
     return SimpleNamespace(
-        name=name, cfg=cfg, traffic=feeds.load_traffic(work["traffic"]), limits=limits,
+        name=name, cfg=conf_file["config"],
+        reference=reference_class(conf_file.get("reference", DEFAULT_REFERENCE), conf["file"]),
+        traffic=feeds.load_traffic(work["traffic"]), limits=limits,
         end_to_end=mine(bench["end_to_end"]), per_layer=mine(bench["per_layer"]))
+
+
+def reference_class(name: str, source: str):
+    """The class ``"<module>.<Class>"`` of ``reference/`` that the
+    configuration file ``source`` names."""
+    module, _, cls = name.rpartition(".")
+    try:
+        found = getattr(importlib.import_module(f"{__package__}.reference.{module}"), cls)
+    except (ImportError, AttributeError, ValueError) as e:
+        raise ValueError(f"{source}: reference {name!r} is no class of portbench/reference/ "
+                         f"({e})") from e
+    if not isinstance(found, type):
+        raise ValueError(f"{source}: reference {name!r} is no class of portbench/reference/")
+    return found
 
 
 def port_config(cfg: dict) -> Config:
@@ -83,9 +115,9 @@ def batch_shapes(cfg: dict) -> tuple:
 
 
 # ------------------------------------------------------------------- weights
-def parameter_shapes(cfg: dict) -> dict:
+def parameter_shapes(reference, cfg: dict) -> dict:
     with torch.device("meta"):
-        ref = JointReference(cfg)
+        ref = reference(cfg)
     return {k: tuple(p.shape) for k, p in ref.named_parameters()}
 
 
@@ -109,14 +141,15 @@ def make_weights(shapes: dict, seed: int, device) -> dict:
 
 
 # --------------------------------------------------------------- FLOP count
-def count_flops(cfg: dict) -> tuple[int, KernelCalls]:
-    """One step's FLOPs, counted on the reference over meta tensors: the
-    matrix work (``FlopCounterMode``) plus the kernels' functions (the frozen
-    formulas); and the kernels' calls with their shapes."""
+def count_flops(reference, cfg: dict) -> tuple[int, KernelCalls]:
+    """One step's FLOPs, counted on the reference class ``reference`` over
+    meta tensors: the matrix work (``FlopCounterMode``) plus the kernels'
+    functions (the frozen formulas); and the kernels' calls with their
+    shapes."""
     img, k = batch_shapes(cfg)
     calls = KernelCalls()
     with torch.device("meta"):
-        ref = JointReference(cfg)
+        ref = reference(cfg)
         batch = (torch.empty(img, dtype=torch.uint8), torch.ones(k), torch.ones(k))
     with FlopCounterMode(display=False) as matrix:
         pack = ref.loss_pack(*batch, calls=calls)
@@ -125,11 +158,13 @@ def count_flops(cfg: dict) -> tuple[int, KernelCalls]:
     return matrix.get_total_flops() + calls.total, calls
 
 
-def cached_count(cfg: dict) -> tuple[int, KernelCalls]:
+def cached_count(reference, cfg: dict) -> tuple[int, KernelCalls]:
     """``count_flops``, kept in ``.cache/`` inside the checkout under a hash
-    of the configuration and of the files the count runs, so that only a
-    checkout's first run of a cell pays for it."""
+    of the configuration, of the reference class's name and of the files
+    the count runs, so that only a checkout's first run of a cell pays for
+    it."""
     h = hashlib.sha256(json.dumps(cfg, sort_keys=True).encode())
+    h.update(f"{reference.__module__}.{reference.__qualname__}".encode())
     for f in sorted([*(PKG / "reference").glob("*.py"), PKG / "flops" / "__init__.py",
                      Path(__file__)]):
         h.update(f.read_bytes())
@@ -141,7 +176,7 @@ def cached_count(cfg: dict) -> tuple[int, KernelCalls]:
         calls.flops = got["flops"]
         calls.calls = [(n, p, tuple(s)) for n, p, s in got["calls"]]
         return got["total"], calls
-    total, calls = count_flops(cfg)
+    total, calls = count_flops(reference, cfg)
     path.parent.mkdir(exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     with open(tmp, "w") as f:
@@ -276,9 +311,9 @@ def run(cell: SimpleNamespace, seed: int, seconds: float, trace: bool, t_start: 
     phases = Phases(t_start)
     if cuda:
         torch.backends.cudnn.benchmark = True  # one input shape, as the training CLI
-    flops_per_step, calls = cached_count(cfg)
+    flops_per_step, calls = cached_count(cell.reference, cfg)
     phases.done("count")
-    weights = make_weights(parameter_shapes(cfg), seed, dev)
+    weights = make_weights(parameter_shapes(cell.reference, cfg), seed, dev)
     feed = feeds.make_feed(traffic, cfg, seed, dev)
     try:
         sync()
@@ -304,7 +339,7 @@ def run(cell: SimpleNamespace, seed: int, seconds: float, trace: bool, t_start: 
             torch.cuda.empty_cache()
 
         batches = feed.checked(n_checked)
-        ref = reference_steps(cfg, weights, batches, dev)
+        ref = reference_steps(cell.reference, cfg, weights, batches, dev)
         phases.done("reference")
         numbers = check.compare(mine, ref, cell.limits)
         if traffic["feed"] == "loader":

@@ -9,8 +9,6 @@ from __future__ import annotations
 
 import torch
 
-from .joint import JointReference
-
 
 def fp8_fake_quant(x: torch.Tensor) -> torch.Tensor:
     """``x`` rounded to float8 e4m3 under a per-tensor scale (its largest
@@ -25,10 +23,12 @@ def leaf_norms(tensors) -> torch.Tensor:
     return torch.stack(norms) if norms else torch.zeros(0)
 
 
-def reference_steps(cfg: dict, weights: dict, batches, device, fake_quant=None) -> dict:
-    """Run ``len(batches)`` steps of the reference from ``weights`` ({name:
-    tensor}) and return, as CPU tensors and floats: ``losses`` (loss_total of
-    each step), ``names`` (the parameters that took a gradient at step 1),
+def reference_steps(reference, cfg: dict, weights: dict, batches, device,
+                    fake_quant=None) -> dict:
+    """Run ``len(batches)`` steps of the reference class ``reference`` (the
+    cell's, ``harness.load_cell``) from ``weights`` ({name: tensor}) and
+    return, as CPU tensors and floats: ``losses`` (loss_total of each
+    step), ``names`` (the parameters that took a gradient at step 1),
     ``grad`` (their step-1 gradient norms), ``change`` (the norms of their
     change over all steps), ``bn_names`` / ``bn_change`` (the norms of each
     BatchNorm buffer's change), ``terms`` (the loss pack's means at step 1)."""
@@ -38,7 +38,7 @@ def reference_steps(cfg: dict, weights: dict, batches, device, fake_quant=None) 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = False  # no autotuning of shapes run three times
     try:
-        model = JointReference(cfg, fake_quant).to(device)
+        model = reference(cfg, fake_quant).to(device)
         missing = model.load_state_dict(weights, strict=False).missing_keys
         missing = [k for k in missing if "running_" not in k]
         if missing:

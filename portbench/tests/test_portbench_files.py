@@ -89,3 +89,29 @@ def test_reference_imports_nothing_of_the_port_or_jax():
             else:
                 continue
             assert not tops & banned, f"{path.name} imports {tops & banned}"
+
+
+@pytest.mark.parametrize("cell,module,cls", [
+    ("geom-b8", "joint", "JointReference"),  # kitti_geom.json names none: the default
+    ("flow-b8", "joint", "JointReference"),
+    ("depth-b8", "depth", "DepthReference"),  # kitti_depth.json names its own
+])
+def test_a_configuration_names_its_reference(cell, module, cls):
+    ref = harness.load_cell(cell).reference
+    assert (ref.__module__, ref.__name__) == (f"portbench.reference.{module}", cls)
+
+
+@pytest.mark.parametrize("name", ["nosuch.Reference", "joint.NoSuchReference", "JointReference",
+                                  "joint.WEIGHTS", ""])
+def test_a_reference_that_does_not_resolve_raises_naming_the_file(name, tmp_path, monkeypatch):
+    b = bench()
+    b["workloads"] = [dict(next(w for w in b["workloads"] if w["name"] == "geom-b8"),
+                           config="odd")]
+    b["configs"] = [{"name": "odd", "file": "odd.json"}]
+    with open(ROOT / "portbench" / "configs" / "kitti_geom.json") as f:
+        conf = dict(json.load(f), reference=name)
+    (tmp_path / "odd.json").write_text(json.dumps(conf))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+    monkeypatch.setattr(harness, "ROOT", tmp_path)
+    with pytest.raises(ValueError, match="odd.json"):
+        harness.load_cell("geom-b8")

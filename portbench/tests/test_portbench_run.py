@@ -19,11 +19,10 @@ import pytest
 import torch
 
 from portbench import calibrate, check, feeds, harness
-from portbench.reference.joint import JointReference
 from portbench.reference.step import reference_steps
 
 ROOT = Path(harness.__file__).resolve().parents[1]
-CELLS = ("geom-b8", "flow-b8")
+CELLS = ("geom-b8", "flow-b8", "depth-b8")
 SEED = 12  # the seed the loss-pack tolerance below was read at
 
 
@@ -40,10 +39,10 @@ def test_reference_loss_pack_and_gradients_match_the_port(name):
 
     cell = tiny(name)
     dev = torch.device("cpu")
-    weights = harness.make_weights(harness.parameter_shapes(cell.cfg), SEED, dev)
+    weights = harness.make_weights(harness.parameter_shapes(cell.reference, cell.cfg), SEED, dev)
     batch = feeds.make_feed(cell.traffic, cell.cfg, SEED, dev).batch(0)
     model, _, _ = harness.build_program(cell.cfg, weights, dev)
-    ref = JointReference(cell.cfg)
+    ref = cell.reference(cell.cfg)
     ref.load_state_dict(weights, strict=False)
     ref.train()
     mine, theirs = _forward(model, harness.port_config(cell.cfg), batch), ref.loss_pack(*batch)
@@ -104,10 +103,10 @@ def test_the_check_reads_a_state_left_unchanged_as_one():
 def test_reference_steps_are_deterministic(name):
     cell = tiny(name)
     dev = torch.device("cpu")
-    weights = harness.make_weights(harness.parameter_shapes(cell.cfg), SEED, dev)
+    weights = harness.make_weights(harness.parameter_shapes(cell.reference, cell.cfg), SEED, dev)
     batches = feeds.make_feed(cell.traffic, cell.cfg, SEED, dev).checked(2)
-    a = reference_steps(cell.cfg, weights, batches, dev)
-    b = reference_steps(cell.cfg, weights, batches, dev)
+    a = reference_steps(cell.reference, cell.cfg, weights, batches, dev)
+    b = reference_steps(cell.reference, cell.cfg, weights, batches, dev)
     assert a["losses"] == b["losses"] and torch.equal(a["grad"], b["grad"])
 
 
@@ -146,12 +145,33 @@ def test_the_command_refuses_without_a_card():
 
 def test_frozen_flop_count_at_the_cells_shapes():
     # the port's bench.py counted 3.954532424352e12 (geom) and 1.94747538944e12
-    # (flow, "splat"; the cell's "splat_nn" has no splat kernel function to count)
-    geom, _ = harness.count_flops(harness.load_cell("geom-b8").cfg)
-    flow, calls = harness.count_flops(harness.load_cell("flow-b8").cfg)
+    # (flow, "splat"; the cell's "splat_nn" has no splat kernel function to
+    # count); depth's as the test below
+    def count(name):
+        cell = harness.load_cell(name)
+        return harness.count_flops(cell.reference, cell.cfg)
+
+    geom, _ = count("geom-b8")
+    flow, calls = count("flow-b8")
+    depth, depth_calls = count("depth-b8")
     assert geom == 3954532424352
     assert flow == pytest.approx(1.94747538944e12, rel=1e-4)
     assert {c[0] for c in calls.calls} == {"correlation", "warp", "ssim"}
+    assert depth == 2007150740160
+    # six warps a step: each side frame at three scales, with their backwards
+    assert [c[:2] for c in depth_calls.calls] == [("warp", "fwd")] * 6 + [("warp", "bwd")] * 6
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_the_reference_counts_the_flops_the_port_counts(name):
+    """The reference's count on meta tensors equals the port's own count of
+    one eager step (``bench.Bench.count_flops``) at 64x128 b2."""
+    from unsupervised_depth_opticalflow_egomotion_torch import bench
+
+    cell = harness.load_cell(name)
+    cfg = dict(cell.cfg, img_hw=[64, 128], batch_size=2, compute_dtype="float32")
+    ours, _ = harness.count_flops(cell.reference, cfg)
+    assert ours == sum(bench.Bench(harness.port_config(cfg), "cpu").count_flops())
 
 
 def loader_cell():

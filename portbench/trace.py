@@ -22,6 +22,16 @@ STEP_SPAN = "portbench.step"
 MATRIX_OPS = ("aten::cudnn_convolution", "aten::convolution_backward",
               "aten::cudnn_convolution_transpose", "aten::mm", "aten::bmm", "aten::addmm",
               "aten::baddbmm", "aten::addbmm", "aten::_int_mm")
+# the same work by kernel name, for a step that dispatches no op (a CUDA
+# graph's replay): parts of the names of the cuDNN, cuBLAS and CUTLASS
+# kernels that the MATRIX_OPS launch (read off op-by-op traced steps of the
+# geom, flow and depth cells on an H100, torch 2.11, CUDA 12.8), cuDNN's
+# layout kernels among them, and the device memsets, two thirds of which
+# are the convolutions' (cuDNN's workspace and accumulators); no other
+# kernel's name holds one
+CONV_KERNELS = ("xmma", "gemm", "gemv", "nvjet", "cutlass", "splitKreduce", "convolve", "winograd",
+                "fft2d", "dgrad", "wgrad", "fprop", "nchwToNhwc", "nhwcToNchw", "nhwcAddPadding",
+                "tensorTransform", "Memset")
 
 
 class Trace:
