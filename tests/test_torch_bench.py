@@ -31,7 +31,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 import unsupervised_depth_opticalflow_egomotion_tpu.parallel as jparallel
 from unsupervised_depth_opticalflow_egomotion_torch import bench
-from unsupervised_depth_opticalflow_egomotion_torch.config import Config
+from unsupervised_depth_opticalflow_egomotion_torch.config import PORT_ONLY_FIELDS, Config
 from unsupervised_depth_opticalflow_egomotion_torch.models.layers import Conv
 from unsupervised_depth_opticalflow_egomotion_torch.ops import flops
 from unsupervised_depth_opticalflow_egomotion_torch.ops import int8_conv as ti8
@@ -96,6 +96,8 @@ def test_settings_config_batch_metric_match_jax_bench(name, monkeypatch, capsys)
     settings = bench.Settings.from_env()
     cfg = settings.config()
     got, want = dataclasses.asdict(cfg), dataclasses.asdict(seen["cfg"])
+    for k in PORT_ONLY_FIELDS:  # the port's own: its default is what JAX runs
+        assert got.pop(k) == getattr(Config(), k)
     assert list(got) == list(want)
     for field, value in want.items():
         assert got[field] == value, field

@@ -584,3 +584,37 @@ def test_replayed_steps_in_a_profiler_session(cuda):
     for kernel in ("warp_gather_kernel", "corr_fwd_kernel", "corr_bwd_kernel",
                    "ssim_fwd_kernel", "ssim_bwd_kernel"):
         assert any(kernel in n for n in device), kernel
+
+
+def test_raft_graphed_step_agrees_with_the_eager_step_within_the_cells_limits(cuda):
+    """The ``raft-b8`` cell's step (b8 256x832 bf16, 12 iterations) from
+    the cell's weights and frames: five steps graphed (two op by op, the
+    capture, two replays) against five op by op on a fresh copy of the same
+    state. ``grid_sampler_2d``'s backward adds atomically and has no
+    deterministic form, so the two are compared as the benchmark compares
+    the program with its reference (``portbench/check.py``): every number
+    of the cell's limits holds, and the graph replayed."""
+    import gc
+
+    from portbench import check, feeds, harness
+
+    torch.backends.cudnn.benchmark = True
+    cell = harness.load_cell("raft-b8")
+    seed = 2_900_000_011
+    weights = harness.make_weights(harness.parameter_shapes(cell.reference, cell.cfg), seed,
+                                   cuda)
+    feed = feeds.make_feed(cell.traffic, cell.cfg, seed, cuda)
+    batches = feed.checked(5)
+    got = {}
+    for how in ("graphed", "eager"):
+        model, opt, step = harness.build_program(cell.cfg, weights, cuda)
+        run = step if how == "graphed" else step.eager
+        got[how] = harness.checked_steps(model, opt, run, batches)
+        if how == "graphed":
+            assert step.graph is not None and step.body_runs == WARMUP_CALLS + 1
+        del model, opt, step, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    numbers = check.compare(got["graphed"], got["eager"], cell.limits)
+    assert all(check.holds(k, v) for k, v in numbers.items()), numbers
+    assert all(np.isfinite(got["graphed"]["losses"]))

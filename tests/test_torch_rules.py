@@ -82,10 +82,14 @@ def test_source_imports_nothing_of_jax():
 
 
 def test_config_copy_equals_jax_config():
-    """Same fields, defaults and loss weights as the JAX package's Config."""
-    tf = [(f.name, f.default) for f in dataclasses.fields(tconfig.Config)]
+    """Same fields, defaults and loss weights as the JAX package's Config,
+    but for the port's own fields (``PORT_ONLY_FIELDS``), whose defaults
+    select what the JAX package runs."""
+    tf = [(f.name, f.default) for f in dataclasses.fields(tconfig.Config)
+          if f.name not in tconfig.PORT_ONLY_FIELDS]
     jf = [(f.name, f.default) for f in dataclasses.fields(jconfig.Config)]
     assert tf == jf
+    assert tconfig.Config().flow_net == "pwc"
     assert tconfig.Config().ssim_impl == "pallas"
     assert tconfig.loss_weights(tconfig.Config()) == jconfig.loss_weights(jconfig.Config())
     with pytest.raises(ValueError):
@@ -98,7 +102,9 @@ def test_load_config_copy_equals_jax(preset):
     path = str(REPO / "configs" / preset)
     got = tconfig.load_config(path, batch_size=2)
     want = jconfig.load_config(path, batch_size=2)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert {k: getattr(got, k) for k in tconfig.PORT_ONLY_FIELDS} == {"flow_net": "pwc"}
+    assert {k: v for k, v in dataclasses.asdict(got).items()
+            if k not in tconfig.PORT_ONLY_FIELDS} == dataclasses.asdict(want)
     assert got.batch_size == 2
 
 

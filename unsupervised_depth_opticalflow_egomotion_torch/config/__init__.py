@@ -1,3 +1,3 @@
-from .config import Config, load_config, loss_weights
+from .config import PORT_ONLY_FIELDS, Config, load_config, loss_weights
 
-__all__ = ["Config", "load_config", "loss_weights"]
+__all__ = ["PORT_ONLY_FIELDS", "Config", "load_config", "loss_weights"]

@@ -2,7 +2,8 @@
 
 The PyTorch port's own copy of the JAX package's ``config/config.py`` (the
 port imports nothing of the JAX package): same fields, same defaults, same
-YAML presets. Field comments that cite TPU measurements describe the JAX
+YAML presets, and one field of its own (``flow_net``, whose default is the
+JAX package's network). Field comments that cite TPU measurements describe the JAX
 package. What the kernel-selecting fields run in this port, on a CUDA tensor
 (on a CPU tensor every kernel wrapper runs its plain PyTorch version):
 
@@ -35,6 +36,11 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 import yaml
+
+
+# fields that the JAX package's Config does not have; each one's default
+# selects what the JAX package runs
+PORT_ONLY_FIELDS = ("flow_net",)
 
 
 @dataclass
@@ -154,6 +160,10 @@ class Config:
     # 4-tap bilinear "splat" for the final-convergence tail (one recompile at
     # the boundary). Captures splat_nn's ~2.2x throughput without its noisy
     # late-training mask flicker (TRAINING.md flow_nn12k). 0 = no switch.
+    flow_net: str = "pwc"  # the flow network: "pwc" (the feature pyramid
+    # and PWC decoder of every mode) | "raft" (flow mode only: RAFT, Teed &
+    # Deng 2020, models/raft.py, scored at full resolution after each of its
+    # update iterations; needs num_scales 1 and loss_base_scale 0)
     loss_base_scale: int = 0  # half-resolution loss dial: base the whole loss
     # pyramid this many octaves below the input resolution. Networks and
     # inference are unchanged (full-res disp/flow heads remain); training

@@ -8,6 +8,9 @@ and cross-task consistency). One ``nn.Module`` hosts the four sub-networks
 under the reference's state_dict names (``depth_net``, ``pose_net``,
 ``fpyramid``, ``pwc_model``), and the four inference methods of the eval
 path (``infer_disp``, ``infer_depth``, ``inference_flow``, ``infer_pose``).
+Under ``Config.flow_net="raft"`` (flow mode alone) RAFT (``models/raft.py``,
+at ``raft``) takes the place of ``fpyramid`` and ``pwc_model``, and the flow
+objective scores each of its iterations (RAFT's sequence loss).
 
 The model is built from a ``Config`` and has no defaults of its own, so it
 cannot drift from the configuration the way the JAX module's defaults do.
@@ -24,10 +27,13 @@ draws. ``encoder_int8`` runs the depth encoder's convs in int8
 (``models/depth_net.py``, ``ops/int8_conv.py``).
 
 The training forwards mark their networks (``net.depth``, ``net.pose``,
-``net.pyramid``, ``net.pwc``) and the parts of the loss graph
-(``loss.recon``, ``loss.flow_warps``, ``loss.masks``, ``loss.terms``,
-``loss.sampled``) as program spans (``utils/profiler.span``), each once a
-call; the inference methods mark nothing.
+``net.pyramid``, ``net.pwc``; RAFT's ``net.raft.fnet``, ``net.raft.cnet``,
+``net.raft.corr`` and ``net.raft.iter`` with the iteration's index) and the
+parts of the loss graph (``loss.recon``, ``loss.flow_warps``,
+``loss.masks``, ``loss.terms``, ``loss.sampled``; ``loss.iter`` with the
+index around each of RAFT's iterations' objective) as program spans
+(``utils/profiler.span``), each once a call (an iteration's once an
+iteration); the inference methods mark nothing.
 
 NOTE (preserved reference behaviour): the sigmoid disp pyramid is used
 directly as "depth" in the reconstruction.
@@ -59,6 +65,7 @@ from .feature_pyramid import FeaturePyramid
 from .layers import module_mode
 from .pose_net import PoseNet
 from .pwc_decoder import PWCDecoder
+from .raft import GAMMA, RAFT
 
 
 def split_stack(images: torch.Tensor, dtype=None):
@@ -89,6 +96,7 @@ def _split3(x: torch.Tensor):
 
 
 MODES = ("flow", "depth", "geom")
+FLOW_NETS = ("pwc", "raft")
 # Config.flow_occ_impl -> taps of occlusion_mask_from_flow
 _OCC_TAPS = {
     "splat": "bilinear",
@@ -117,6 +125,25 @@ def _loss_frames(frames, ls: int):
     return tuple(resize_area(f, (h >> ls, w >> ls)) for f in frames)
 
 
+def _check_flow_net(cfg: Config) -> None:
+    """RAFT trains in flow mode alone, with one output resolution."""
+    if cfg.flow_net not in FLOW_NETS:
+        raise ValueError(f"flow_net must be one of {FLOW_NETS}, got {cfg.flow_net!r}")
+    if cfg.flow_net != "raft":
+        return
+    if cfg.mode != "flow":
+        raise ValueError(f"flow_net='raft' trains in mode 'flow' alone, not {cfg.mode!r}")
+    if cfg.loss_base_scale != 0 or cfg.num_scales != 1:
+        raise ValueError("flow_net='raft' scores one full-resolution flow: it needs "
+                         f"loss_base_scale 0 and num_scales 1, got {cfg.loss_base_scale} "
+                         f"and {cfg.num_scales}")
+    if min(cfg.img_hw) < 128:
+        # the pyramid's coarsest level is 1/64 of the frame, and the lookup
+        # normalises by its size less one
+        raise ValueError(f"flow_net='raft' needs img_hw of at least 128 x 128, "
+                         f"got {tuple(cfg.img_hw)}")
+
+
 class JointModel(nn.Module):
     # JAX JointModel fixes these two (joint.py:96-97); Config has no field
     rigid_thres = 0.5
@@ -135,6 +162,7 @@ class JointModel(nn.Module):
                 "loss_base_scale + num_scales must be <= 4 (the PWC decoder "
                 f"emits 4 flow scales); got {ls} + {cfg.num_scales}"
             )
+        _check_flow_net(cfg)
         self.cfg = cfg
         self.dtype = dtype = compute_dtype(cfg)
         self.warp_route = WarpRoute(cfg.warp_impl, cfg.warp_bf16)
@@ -143,8 +171,11 @@ class JointModel(nn.Module):
             cfg.encoder_int8, dtype, extra_head_scales=ls,
         )
         self.pose_net = PoseNet(cfg.img_hw, cfg.num_input_frames, dtype)
-        self.fpyramid = FeaturePyramid(cfg.packed_convs, dtype)
-        self.pwc_model = PWCDecoder(corr_impl=cfg.pwc_corr, dtype=dtype)
+        if cfg.flow_net == "raft":
+            self.raft = RAFT(dtype)
+        else:
+            self.fpyramid = FeaturePyramid(cfg.packed_convs, dtype)
+            self.pwc_model = PWCDecoder(corr_impl=cfg.pwc_corr, dtype=dtype)
 
     # ------------------------------------------------------------------ infer
     # The four inference methods of the JAX JointModel (joint.py:174-192). Each
@@ -169,8 +200,11 @@ class JointModel(nn.Module):
 
     def inference_flow(self, img1, img2):
         """Full-resolution forward flow [B,H,W,2] (model_geometry.py:294-298):
-        the feature pyramid on each image, then the PWC decoder."""
+        the feature pyramid on each image, then the PWC decoder; under
+        ``flow_net="raft"`` RAFT's last flow at its inference iterations."""
         with self._inference():
+            if self.cfg.flow_net == "raft":
+                return self.raft(img1, img2)
             hw = (img1.shape[1], img1.shape[2])
             f1 = self.fpyramid(img1.to(self.dtype))
             f2 = self.fpyramid(img2.to(self.dtype))
@@ -207,16 +241,20 @@ class JointModel(nn.Module):
         "diff_weights". With ``loss_base_scale`` ls the flows of scales
         ls..3 are scored against the frames area-resized ls octaves down, and
         no warp samples the uint8 frames.
+
+        Under ``flow_net="raft"`` the objective scores each of RAFT's
+        iterations' full-resolution flows (scale 0 alone), and the packs are
+        summed with weights ``GAMMA ** (N - 1 - i)`` (RAFT's sequence loss);
+        its context encoder's BatchNorm runs.
         """
         del K_ms, K_inv_ms
-        cfg = self.cfg
-        ns = cfg.num_scales
-        ls = cfg.loss_base_scale
-        ssim_impl = cfg.ssim_impl
+        if self.cfg.flow_net == "raft":
+            return self._raft_sequence_loss(images)
+        ls = self.cfg.loss_base_scale
         raw = split_stack_raw(images) if ls == 0 else None
-        img_l, img, img_r = split_stack(images, self.dtype)
+        frames = split_stack(images, self.dtype)
+        img_l, img, img_r = frames
         hw = (img.shape[1], img.shape[2])
-        b = img.shape[0]
 
         # one 3B feature pass + one 2B decoder pass (bwd first, fwd second)
         with span("net.pyramid"):
@@ -226,11 +264,39 @@ class JointModel(nn.Module):
             feat_cc = tuple(torch.cat([c, c], 0) for c in feat)
             feat_lr = tuple(torch.cat(p, 0) for p in zip(feat_l, feat_r))
             flows_both = self.pwc_model(feat_cc, feat_lr, hw)[ls:]
+        return self._flow_objective(raw, frames, flows_both)
+
+    def _raft_sequence_loss(self, images):
+        """RAFT's flows after each iteration (from the f32 frames), each
+        scored by the flow objective at full resolution, weighted
+        GAMMA ** (N - 1 - i)."""
+        frames32 = split_stack(images, torch.float32)
+        flows = self.raft.flows_of_triplet(*frames32)
+        raw = split_stack_raw(images)
+        frames = tuple(f.to(self.dtype) for f in frames32)
+        n, pack = len(flows), {}
+        for i, flow in enumerate(flows):
+            with span("loss.iter", i):
+                weight = GAMMA ** (n - 1 - i)
+                for k, v in self._flow_objective(raw, frames, [flow]).items():
+                    pack[k] = pack[k] + weight * v if k in pack else weight * v
+        return pack
+
+    def _flow_objective(self, raw, frames, flows_both):
+        """The flow objective's loss pack for the 2B flows ``flows_both``
+        (bwd first, fwd second; finest first, from scale ``loss_base_scale``)
+        of the frame triplet ``frames`` (and its ``raw`` uint8 rows, or
+        None)."""
+        cfg = self.cfg
+        ns = cfg.num_scales
+        ls = cfg.loss_base_scale
+        ssim_impl = cfg.ssim_impl
+        b = flows_both[0].shape[0] // 2
         flows_bwd = [f[:b] for f in flows_both]
         flows_fwd = [f[b:] for f in flows_both]
 
         # the flow objective uses area pyramids
-        img_l, img, img_r = _loss_frames((img_l, img, img_r), ls)
+        img_l, img, img_r = _loss_frames(frames, ls)
         n = len(flows_fwd)
         img_l_pyr = image_pyramid(img_l, n, mode="area")
         img_pyr = image_pyramid(img, n, mode="area")

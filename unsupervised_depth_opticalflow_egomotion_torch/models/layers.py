@@ -28,9 +28,11 @@ from ..ops.int8_conv import int8_conv
 class Conv(nn.Module):
     """Conv2d on NHWC tensors with torch-style symmetric padding.
 
-    ``init`` picks the reference's effective initialisation: "torch" =
-    Conv2d's default kaiming-uniform(a=sqrt(5)), i.e. U(+-1/sqrt(fan_in)),
-    with zero bias; "kaiming_out" = kaiming-normal(fan_out) (ResNet).
+    ``kernel`` and ``padding`` take an int (square) or a (rows, columns)
+    pair, as ``nn.Conv2d`` does. ``init`` picks the reference's effective
+    initialisation: "torch" = Conv2d's default kaiming-uniform(a=sqrt(5)),
+    i.e. U(+-1/sqrt(fan_in)), with zero bias; "kaiming_out" =
+    kaiming-normal(fan_out) (ResNet).
     ``int8`` runs the forward in int8 with a straight-through backward
     (``ops/int8_conv.py``; no bias, no dilation).
     """
@@ -40,7 +42,8 @@ class Conv(nn.Module):
         super().__init__()
         if int8 and (bias or dilation != 1):
             raise ValueError("an int8 conv takes no bias and no dilation")
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+        self.weight = nn.Parameter(torch.empty(cout, cin, kh, kw))
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.init, self.dtype, self.int8 = init, dtype, int8

@@ -9,8 +9,9 @@ modes (``cfg.mode``: flow | depth | geom), with the same four entry points:
 - ``make_optimizer(cfg, model)``: Adam at ``cfg.lr`` (torch's defaults equal
   optax.adam's) over the trainable parameters, with the optional global-norm
   clip applied in the step. The ``fix_*`` flags freeze parameters by the
-  JAX package's substring labels (pwc/fpyramid, depth, pose); frozen
-  parameters still run forward and their BatchNorm statistics still update.
+  JAX package's substring labels (pwc/fpyramid, depth, pose; ``fix_flow``
+  also RAFT's, ``raft.*``); frozen parameters still run forward and their
+  BatchNorm statistics still update.
 - ``init_state(cfg, device)``: the model and its optimizer.
 - ``make_train_step(model, cfg, optimizer, group=None)``: one step on a
   batch ``(images, K_ms, K_inv_ms)``; returns the metrics (the mean of
@@ -54,9 +55,10 @@ The model and the optimizer state are updated in place; BatchNorm running
 statistics update during the forward, as flax's mutable ``batch_stats``.
 A mode trains the networks it runs: flow mode the feature pyramid and the
 PWC decoder (no BatchNorm module runs, so every running statistic stays as
-it was), depth mode the depth and pose networks. The other networks get no
-gradient; Adam skips them and keeps no moments for them, which leaves them
-where optax's zero gradient leaves them.
+it was) or RAFT (whose context encoder's BatchNorm runs), depth mode the
+depth and pose networks. The other networks get no gradient; Adam skips
+them and keeps no moments for them, which leaves them where optax's zero
+gradient leaves them.
 """
 
 from __future__ import annotations
@@ -86,7 +88,7 @@ def build_model(cfg: Config, device=None) -> JointModel:
 
 def freeze_label(cfg: Config, name: str) -> str:
     """'frozen' or 'train' for a parameter name (train.py:64-80 semantics)."""
-    if cfg.fix_flow and ("pwc" in name or "fpyramid" in name):
+    if cfg.fix_flow and ("pwc" in name or "fpyramid" in name or name.startswith("raft.")):
         return "frozen"
     if cfg.fix_depth and "depth" in name:
         return "frozen"

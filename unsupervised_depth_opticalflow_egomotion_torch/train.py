@@ -18,6 +18,8 @@ CLI, train.py:49-332):
   ``depth_pretrained_model``, copy every parameter whose name and shape
   match the stage checkpoint, and no BatchNorm statistic;
 - flow mode's occlusion schedule (``flow_occ_switch_step``);
+- flow mode's network (``--flow_net``: the PWC pyramid and decoder, or
+  RAFT with ``--num_scales 1``; the port's own flags);
 - geom mode's mask dumps every ``10 * log_interval`` steps;
 - the interleaved evaluation every ``test_interval`` steps (train.py:79-119):
   KITTI flow 2012 / 2015 where ``gt_2012_dir`` / ``gt_2015_dir`` are set,
@@ -363,6 +365,10 @@ def main(argv=None):
     parser.add_argument("--flow_occ_switch_step", type=int, default=None,
                         help="flow mode: switch flow_occ_impl -> splat at this "
                              "step (occlusion schedule; 0 = never)")
+    parser.add_argument("--flow_net", default=None, choices=["pwc", "raft"],
+                        help="flow mode's network: the PWC pyramid and decoder, or "
+                             "RAFT (with --num_scales 1)")
+    parser.add_argument("--num_scales", type=int, default=None)
     parser.add_argument("--loss_base_scale", type=int, default=None,
                         help="half-resolution loss dial: the loss pyramid this "
                              "many octaves below the input")

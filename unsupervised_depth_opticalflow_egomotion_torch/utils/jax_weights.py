@@ -18,6 +18,7 @@ extra disparity heads maps them to the JAX tree's ``ReflectConv3x3_x{s}``.
 The models are ``JointModel``, ``TriangulationPoseModel`` and
 ``FlowPoseModel`` (each by the sub-networks it holds, one table group a
 sub-network) and the two attention modules (their convs and ``gamma``).
+A model with RAFT (``flow_net="raft"``) raises: the JAX package has none.
 """
 
 from __future__ import annotations
@@ -131,6 +132,9 @@ def model_table(model: torch.nn.Module) -> list[tuple[str, str, str]]:
     attention modules."""
     if hasattr(model, "gamma"):
         return list(_attention_names(hasattr(model, "query_conv")))
+    if hasattr(model, "raft"):
+        raise TypeError("no JAX weight table for a model with RAFT (flow_net='raft'): "
+                        "the JAX package has no RAFT")
     groups = {"fpyramid": _fpyramid_names, "pwc_model": _pwc_names,
               "pose_net": _pose_net_names, "flow_pose_net": _flow_pose_net_names}
     table = [row for name, group in groups.items() if hasattr(model, name) for row in group()]
