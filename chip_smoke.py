@@ -10,10 +10,11 @@ uses card 0). Phases, in order; any failure exits non-zero:
 2. build: nvcc builds every kernel in
    unsupervised_depth_opticalflow_egomotion_torch/csrc/ for sm_90a, one
    process per source, in parallel.
-3. kernels: each of the nine kernels against its plain PyTorch version on
+3. kernels: each of the eleven kernels against its plain PyTorch version on
    the card, at every shape and dtype that the train steps of phase 5 give
    it (b8, 256x832: the geom and flow warps and the cost volumes run on
-   2B = 16 images, the depth warps, the SSIM maps and the splats on 8),
+   2B = 16 images, the depth warps, the SSIM maps and the splats on 8, the
+   depth decoder's reflection pads on 3B = 24),
    forward and backward, plus cases on no path (f32, five SSIM channels,
    smooth and near-zero splat flows, flows of more than 128 px), and timed
    with CUDA events beside the plain version, a PyTorch library call where
@@ -30,7 +31,8 @@ uses card 0). Phases, in order; any failure exits non-zero:
    and SSIM planes and the flow-mode splats of loss_base_scale=1, the
    cost volume of phase 8's one-pair f32 flow inference, and phase 9's f32
    launches (the cost volume at B = 8, eval_flow's, and the SSIM map and
-   its backward at [8,256,832,3]).
+   its backward at [8,256,832,3]), and the f32 reflection pads of the
+   depth nets' inference and of FlowPoseModel's step.
 4. parity: one train step with the kernels on the card against the plain
    versions on the CPU, at 64x128 b2 in f32 (TF32 off), from the same seed
    and the same draws: the geom step under the default Config, a flow step
@@ -270,9 +272,11 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 
 
 def path_kernels():
-    """The nine CUDA kernels of the train steps, by name: (kernel, the TPU
-    kernel it replaces)."""
+    """The eleven CUDA kernels of the train steps, by name: (kernel, the TPU
+    kernel it replaces, or None for the reflection pad pair, which the port
+    added)."""
     from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume as cv
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import reflect_pad as rp
     from unsupervised_depth_opticalflow_egomotion_torch.ops import splat as sp
     from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as ss
     from unsupervised_depth_opticalflow_egomotion_torch.ops import warp as wp
@@ -287,6 +291,8 @@ def path_kernels():
         "ssim_fwd": (ss.SSIM_FWD, _TPU + "ssim_fused.py:63"),
         "ssim_bwd": (ss.SSIM_BWD, _TPU + "ssim_fused.py:95"),
         "splat_mass": (sp.SPLAT_MASS, _TPU + "splat_window.py:64"),
+        "reflect_pad_fwd": (rp.REFLECT_PAD_FWD, None),
+        "reflect_pad_bwd": (rp.REFLECT_PAD_BWD, None),
     }
 
 
@@ -331,6 +337,25 @@ def _warp_coords(b, h, w, gen, dev):
     return ix.float().contiguous().to(dev), iy.float().contiguous().to(dev)
 
 
+def _decoder_pads(h: int, w: int, heads: int, min_scale: int) -> list:
+    """The inputs (H, W, C) of the depth decoder's reflection-padded 3x3
+    convolutions, one a launch, in a call on h x w frames with ``heads``
+    disparity heads down to ``min_scale`` (models/depth_net.py's
+    DepthDecoder): at each scale the block before the upsampling, the block
+    after the skip concatenation, and the scale's head."""
+    from unsupervised_depth_opticalflow_egomotion_torch.models.depth_net import _DEC_CH, _ENC_CH
+
+    out, cin = [], _ENC_CH[-1]
+    for scale in range(4, min_scale - 1, -1):
+        hs, ws = h >> scale, w >> scale
+        out.append((hs // 2, ws // 2, cin))
+        out.append((hs, ws, _DEC_CH[scale] + (_ENC_CH[scale - 1] if scale else 0)))
+        if scale < heads:
+            out.append((hs, ws, _DEC_CH[scale]))
+        cin = _DEC_CH[scale]
+    return out
+
+
 def phase_kernels():
     """Each kernel against its plain version at the main path's shapes."""
     import torch
@@ -339,6 +364,7 @@ def phase_kernels():
     from unsupervised_depth_opticalflow_egomotion_torch.kernel_times import splat_flow
     from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume as cv
     from unsupervised_depth_opticalflow_egomotion_torch.ops import flops as fl
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import reflect_pad as rp
     from unsupervised_depth_opticalflow_egomotion_torch.ops import splat as sp
     from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as ss
     from unsupervised_depth_opticalflow_egomotion_torch.ops import warp as wp
@@ -631,6 +657,72 @@ def phase_kernels():
             library_ms=None, library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
         ))
 
+    # reflect_pad: the depth decoder's inputs, one a reflection-padded 3x3
+    # conv (_decoder_pads). A case is one decoder call: (dtype, frames,
+    # heads, min_scale, calls a step by path). The geom and depth steps run
+    # it once on 3B = 24 bf16 frames, forward and backward (13 inputs; at
+    # loss_base_scale=1 a fourth head and no scale 0: 11); FlowPoseModel's
+    # step twice on B = 8 f32 with one head (11 inputs each); the two-view
+    # inference twice on 8 f32 frames, forward only, as the eigen eval's
+    # batches of 8; and on no path of the table, forward only in f32, the
+    # mask dump's one item (3 frames) and the synthetic world's eval (one
+    # frame). Forward bit for bit; the gradient sums at most four
+    # cotangents in f32 in another order than ATen's atomics: within 2^-20
+    # of their magnitudes, plus in bf16 one rounding (2^-8 |ref|). Timed
+    # beside the plain version (ATen's pad of the NCHW view), ATen's pad of
+    # an NCHW-contiguous tensor and the bound (input and output once).
+    geom_depth = {"geom": 1, "depth": 1, "geom_all": 1, "geom_regather": 1}
+    ls1 = {"geom_ls1": 1, "depth_ls1": 1}
+    cases = [("bfloat16", 24, 3, 0, geom_depth, geom_depth), ("bfloat16", 24, 4, 1, ls1, ls1),
+             ("float32", 8, 1, 0, {"flowpose": 2}, {"flowpose": 2}),
+             ("float32", 8, 3, 0, {"two_view": 2}, {}),
+             ("float32", 3, 3, 0, {}, {}), ("float32", 1, 3, 0, {}, {})]
+    pads = {}  # (dtype, B, H, W, C) -> (forward, backward launches a step by path)
+    for dts, b, heads, min_scale, per_fwd, per_bwd in cases:
+        for h, w, c in _decoder_pads(256, 832, heads, min_scale):
+            fwd_n, bwd_n = pads.setdefault((dts, b, h, w, c), ({}, {}))
+            for counts, per in ((fwd_n, per_fwd), (bwd_n, per_bwd)):
+                for path, n in per.items():
+                    counts[path] = counts.get(path, 0) + n
+    pad_bwd = torch.ops.aten.reflection_pad2d_backward
+    for (dts, b, h, w, c), (per_fwd, per_bwd) in pads.items():
+        dt = getattr(torch, dts)
+        x = torch.randn(b, h, w, c, generator=gen).to(dev, dt)
+        g = torch.randn(b, h + 2, w + 2, c, generator=gen).to(dev, dt)
+        got, want = rp.reflect_pad_forward(x), rp.reflect_pad_plain(x)
+        err = max_err(got, want)
+        dx = rp.reflect_pad_backward(g).float()
+        x_nchw = x.permute(0, 3, 1, 2)
+        want_g, magnitude = (pad_bwd(cot.permute(0, 3, 1, 2), x_nchw.float(), [1, 1, 1, 1])
+                             .permute(0, 2, 3, 1) for cot in (g.float(), g.float().abs()))
+        rtol = 2.0**-8 if dt == torch.bfloat16 else 0.0
+        diff = (dx - want_g).abs()
+        ratio = (diff / (2.0**-20 * magnitude + rtol * want_g.abs()).clamp_min(1e-30)
+                 ).max().item()
+        err_g = diff.max().item()
+        del got, want, dx, want_g, magnitude, diff
+        b_ms, b_by = bound((x.numel() + g.numel()) * x.element_size(), 0.0, dts)
+        x_c, g_c = x_nchw.contiguous(), g.permute(0, 3, 1, 2).contiguous()
+        runs = {
+            "reflect_pad_fwd": (per_fwd, lambda: rp.reflect_pad_forward(x),
+                                lambda: rp.reflect_pad_plain(x),
+                                lambda: F.pad(x_c, (1, 1, 1, 1), mode="reflect"),
+                                dict(max_abs_err=err, tol=0.0, ok=err == 0.0)),
+            "reflect_pad_bwd": (per_bwd, lambda: rp.reflect_pad_backward(g),
+                                lambda: pad_bwd(g.permute(0, 3, 1, 2), x_nchw, [1, 1, 1, 1]),
+                                lambda: pad_bwd(g_c, x_c, [1, 1, 1, 1]),
+                                dict(max_abs_err=err_g, tol=2.0**-20, rtol=rtol,
+                                     tol_ratio=ratio, ok=ratio <= 1.0)),
+        }
+        for name, (per_step, k_fn, p_fn, lib, check) in runs.items():
+            rows.append(dict(
+                kernel=name, shape=f"{dts}[{b},{h},{w},{c}]", per_step=per_step, **check,
+                ms=cuda_ms(k_fn, 20), device_ms=graph_ms(k_fn), plain_ms=cuda_ms(p_fn, 20),
+                library_ms=cuda_ms(lib, 20), library_device_ms=graph_ms(lib),
+                bound_ms=b_ms, bound_by=b_by,
+            ))
+        del x, g, x_c, g_c
+
     # the int8 geom step and the data-parallel CLI launch what the geom step does
     for r in rows:
         if "geom" in r["per_step"]:
@@ -645,7 +737,7 @@ def phase_kernels():
         lib = "-" if r["library_ms"] is None else (
             f"{r['library_ms']:.4f} (device {r['library_device_ms']:.4f})")
         tol = f"{r['tol']:.3g}"
-        if r.get("rtol"):
+        if "tol_ratio" in r:
             tol += f" + {r['rtol']:g} |ref| by element, worst ratio {r['tol_ratio']:.3g}"
         log(f"kernel {r['kernel']:18s} {r['shape']:34s} err {r['max_abs_err']:.3g} "
             f"(tol {tol}) {'ok' if r['ok'] else 'MISMATCH'}  ms {r['ms']:.4f} "
@@ -933,6 +1025,10 @@ def phase_train(smi: str):
     torch.backends.cudnn.benchmark = True
     corr = {"corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5}
     ssim = {"ssim_fwd": 6, "ssim_bwd": 6}
+    # the depth decoder's pads, forward and backward: 13 inputs, 11 at
+    # loss_base_scale=1 (phase 3)
+    pad = {"reflect_pad_fwd": 13, "reflect_pad_bwd": 13}
+    pad_ls1 = {"reflect_pad_fwd": 11, "reflect_pad_bwd": 11}
     by_path = {}  # path -> (launches by kernel, the step body's runs) of its first run
     lines = {}  # path -> bench.py's line of its first run
 
@@ -951,8 +1047,8 @@ def phase_train(smi: str):
                             "nvidia_smi": smi, "ms_per_step": ms}))
         return ms, peak
 
-    geom_k = {"warp_gather": 6, **corr, **ssim}
-    xla_k = {"warp_gather": 6, **corr}
+    geom_k = {"warp_gather": 6, **corr, **ssim, **pad}
+    xla_k = {"warp_gather": 6, **corr, **pad}
     geom = _start_bench("geom default", Settings())
     xla = _start("geom ssim_impl=xla", {"ssim_impl": "xla"})
     ms_g, gb_g = bench_drive(geom, geom_k, 20, True, "geom")
@@ -968,8 +1064,8 @@ def phase_train(smi: str):
     # BENCH_WARP_IMPL=pallas: the gathers without planes and the re-gather
     # backward; the FLOP count reads the same work as the default route's
     run = _start_bench("geom BENCH_WARP_IMPL=pallas", Settings(warp_impl="pallas"))
-    line = _bench_drive(run, {"warp_gather_nograd": 6, "warp_gather_bwd": 6, **corr, **ssim},
-                        5, True)[0]
+    line = _bench_drive(run, {"warp_gather_nograd": 6, "warp_gather_bwd": 6, **corr, **ssim,
+                              **pad}, 5, True)[0]
     if line["flops_per_step"] != lines["geom"]["flops_per_step"]:
         fail(f"geom BENCH_WARP_IMPL=pallas: flops_per_step {line['flops_per_step']}, the "
              f"default route's {lines['geom']['flops_per_step']}")
@@ -981,7 +1077,7 @@ def phase_train(smi: str):
     flow = _start_bench("flow splat", Settings(mode="flow", flow_occ="splat"))
     ms_f, _ = bench_drive(flow, flow_k, 20, True, "flow")
     depth = _start_bench("depth", Settings(mode="depth"))
-    ms_d, _ = bench_drive(depth, {"warp_gather": 6}, 20, True, "depth")
+    ms_d, _ = bench_drive(depth, {"warp_gather": 6, **pad}, 20, True, "depth")
 
     # the geom step with the four optional losses (the eight-point loss at
     # the weight configs/kitti_geom.yaml names as stable), and at
@@ -997,7 +1093,7 @@ def phase_train(smi: str):
         ("geom +triangle,pnp,eight_point,depth_consis", "geom_all",
          {**GEO_LOSSES, "w_8point": 0.001}, geom_k),
         ("geom loss_base_scale=1", "geom_ls1", {"loss_base_scale": 1},
-         {**geom_k, **corr_ls1}),
+         {**geom_k, **corr_ls1, **pad_ls1}),
     ):
         run = _start(name, overrides)
         ms, _ = drive(run, per_step, 3, 5, path)
@@ -1033,10 +1129,10 @@ def phase_train(smi: str):
          {"mode": "flow", "flow_occ_impl": "splat", "loss_base_scale": 1},
          {"warp_gather": 3, **corr_ls1, **ssim, "splat_mass": 6}),
         ("depth loss_base_scale=1", "depth_ls1", {"mode": "depth", "loss_base_scale": 1},
-         {"warp_gather": 6}),
+         {"warp_gather": 6, **pad_ls1}),
         ("geom warp_impl=pallas pwc_corr=pallas", "geom_regather",
          {"warp_impl": "pallas", "pwc_corr": "pallas"},
-         {"warp_gather_nograd": 6, "warp_gather_bwd": 6, "corr_fwd": 5, **ssim}),
+         {"warp_gather_nograd": 6, "warp_gather_bwd": 6, "corr_fwd": 5, **ssim, **pad}),
     ):
         run = _start(name, overrides)
         drive(run, per_step, 2, 0, path)
@@ -1282,7 +1378,7 @@ def phase_cli(smi: str, geom_ms: float, root: str) -> float:
     finally:
         MetricLogger.add_scalars = original
     per_step = {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
-                "ssim_fwd": 6, "ssim_bwd": 6}
+                "ssim_fwd": 6, "ssim_bwd": 6, "reflect_pad_fwd": 13, "reflect_pad_bwd": 13}
     # 8 steps: two op by op, the graph's capture, five replays
     want = {n: per_step.get(n, 0) * 3 for n in kernels}
     if launches != want:
@@ -1643,8 +1739,10 @@ def _eval_training_cli(root: str, dirs: dict, kernels: dict) -> dict:
     if not losses or not all(math.isfinite(x) for x in losses):
         fail(f"eval: the training CLI's losses are missing or not finite: {losses}")
     per_step = {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
-                "ssim_fwd": 6, "ssim_bwd": 6}
+                "ssim_fwd": 6, "ssim_bwd": 6, "reflect_pad_fwd": 13, "reflect_pad_bwd": 13}
     want = {n: 2 * per_step.get(n, 0) for n in kernels}
+    # the eigen eval: the depth decoder's 13 pads on each batch of 8 frames
+    want["reflect_pad_fwd"] += 13 * EIGEN_FRAMES // 8
     got = {n: k.launches for n, k in kernels.items()}
     if got != want:
         fail(f"eval: the training CLI with interleaved eval launched {got}, expected {want}")
@@ -2168,7 +2266,9 @@ def phase_two_view(smi: str, root: str, eval_yaml: str, procs: dict) -> dict:
         if err_flow > EVAL_TOL["flow"] or err_disp > EVAL_TOL["disp"] \
                 or max(r_err.values()) > 1e-2 or min(cos.values()) <= 0.999:
             fail("two_view: the card's two-view inference disagrees with the CPU's or the truth")
-        want_tv = {n: 5 * n_tv if n == "corr_fwd" else 0 for n in kernels}
+        # the PWC forward, and the depth decoder's 13 pads on each frame of the pairs
+        tv_step = {"corr_fwd": 5, "reflect_pad_fwd": 26}
+        want_tv = {n: tv_step.get(n, 0) * n_tv for n in kernels}
         if by_path["two_view"][0] != want_tv:
             fail(f"two_view: kernel launches {by_path['two_view'][0]}, expected {want_tv}")
         _held(kernels, "two_view inference")
@@ -2216,7 +2316,8 @@ def phase_two_view(smi: str, root: str, eval_yaml: str, procs: dict) -> dict:
             ("flow_pose_net", "flow_pose_net.conv1.weight"))}
         strayed = [k for k, v in before.items()
                    if k.startswith(("fpyramid.", "pwc_model.")) and not torch.equal(v, after[k])]
-        per_step = {"corr_fwd": 5, "ssim_fwd": 1, "ssim_bwd": 1}
+        per_step = {"corr_fwd": 5, "ssim_fwd": 1, "ssim_bwd": 1, "reflect_pad_fwd": 22,
+                    "reflect_pad_bwd": 22}
         want_fp = {n: per_step.get(n, 0) * (warmup + timed) for n in kernels}
         log(f"two_view: FlowPoseModel train b8 {h}x{w} f32 (TF32 off): {warmup + timed} steps, {timed} timed, "
             f"{fp_ms:.1f} ms/step, launches/step {json.dumps(per_step)}, losses {values[0]:.5f} -> "
@@ -2497,7 +2598,7 @@ def _dp_group_cost(smi: str, root: str) -> None:
                             rank=0, world_size=1, device_id=torch.device("cuda", 0))
     try:
         geom_k = {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
-                  "ssim_fwd": 6, "ssim_bwd": 6}
+                  "ssim_fwd": 6, "ssim_bwd": 6, "reflect_pad_fwd": 13, "reflect_pad_bwd": 13}
         runs = {"plain": _start("dp geom default, no group", {}),
                 "group": _start("dp geom default, one-process NCCL group", {},
                                 dist.group.WORLD)}
@@ -2596,7 +2697,7 @@ def phase_dp(smi: str, root: str, cli_fps: float, ranks: dict) -> tuple:
         rec = json.load(f)
     launches = rec["launches"]
     per_step = {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
-                "ssim_fwd": 6, "ssim_bwd": 6}
+                "ssim_fwd": 6, "ssim_bwd": 6, "reflect_pad_fwd": 13, "reflect_pad_bwd": 13}
     want = {n: per_step.get(n, 0) * 10 for n in launches}
     if launches != want:
         fail(f"dp (b): kernel launches {launches}, expected {want}")

@@ -20,6 +20,7 @@ import torch
 
 from unsupervised_depth_opticalflow_egomotion_torch.config import Config
 from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume as tcv
+from unsupervised_depth_opticalflow_egomotion_torch.ops import reflect_pad as trp
 from unsupervised_depth_opticalflow_egomotion_torch.ops import splat as tsp
 from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as tss
 from unsupervised_depth_opticalflow_egomotion_torch.ops import warp as tw
@@ -371,6 +372,62 @@ def test_splat_kernel_matches_plain_on_card(cuda, kind, offset, dtype, bhw):
     assert mask.min() >= 0 and mask.max() <= 1 and not mask.requires_grad
 
 
+# the decoder's coarsest and two of its finer inputs, as [B,H,W,C]; a C that
+# is not a multiple of 8 (bf16 takes it element by element, f32 as 16-byte
+# chunks); the least H and W (2), and 3x3, where a source pixel gathers
+# nine cotangents
+RP_SHAPES = [(2, 8, 26, 512), (2, 128, 416, 96), (2, 256, 832, 16), (2, 7, 9, 12),
+             (3, 2, 2, 8), (2, 3, 3, 5)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_first", "offset"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", RP_SHAPES)
+def test_reflect_pad_kernels_match_plain_on_card(cuda, shape, dtype, layout):
+    """The pad and its gradient against the plain version, on an NHWC input
+    that is contiguous, lies channels-first behind an NHWC view (the wrapper
+    copies it), or lies one element off its allocation (not 16-byte
+    aligned: the kernels take it element by element). The forward is the
+    plain one bit for bit, with and without autograd. The gradient sums at
+    most four terms (nine at 3x3) in f32, in another order than the plain
+    version's atomics, each sum rounding up to eight times: within 2^-20 of
+    the sum of their magnitudes, plus in bf16 one rounding of the f32 sum
+    (2^-8 relative)."""
+    b, h, w, c = shape
+    gen = torch.Generator().manual_seed(h * w + c)
+    x0 = torch.randn(shape, generator=gen)
+    if layout == "channels_first":
+        x = x0.permute(0, 3, 1, 2).contiguous().to(cuda, dtype).permute(0, 2, 3, 1)
+    elif layout == "offset":
+        x = torch.empty(x0.numel() + 1, device=cuda, dtype=dtype)[1:].view(shape)
+        x.copy_(x0)
+    else:
+        x = x0.to(cuda, dtype)
+    g = torch.randn((b, h + 2, w + 2, c), generator=gen).to(cuda, dtype)
+    before = (trp.REFLECT_PAD_FWD.launches, trp.REFLECT_PAD_BWD.launches)
+    xg = x.detach().requires_grad_()
+    y = trp.reflect_pad_nhwc(xg)
+    y.backward(g)
+    with torch.no_grad():
+        y_nograd = trp.reflect_pad_nhwc(x)
+    torch.cuda.synchronize()
+    assert (trp.REFLECT_PAD_FWD.launches, trp.REFLECT_PAD_BWD.launches) == (
+        before[0] + 2, before[1] + 1)
+    want = trp.reflect_pad_plain(x)
+    assert y.is_contiguous() and y.dtype == dtype and not y_nograd.requires_grad
+    assert torch.equal(y, want) and torch.equal(y_nograd, want)
+    grads = []
+    for cot in (g.float(), g.float().abs()):
+        x32 = x.detach().to(torch.float32, copy=True).requires_grad_()
+        trp.reflect_pad_plain(x32).backward(cot)
+        grads.append(x32.grad)
+    want_g, magnitude = grads
+    tol = 2.0**-20 * magnitude + (2.0**-8 * want_g.abs() if dtype == torch.bfloat16 else 0.0)
+    assert xg.grad.dtype == dtype and xg.grad.shape == shape
+    err = (xg.grad.float() - want_g).abs()
+    assert (err <= tol).all(), float((err - tol).max())
+
+
 def _batch(b, h, w, dev, seed=0):
     rng = np.random.RandomState(seed)
     images = torch.from_numpy((rng.rand(b, 3 * h, w, 3) * 255).astype(np.uint8))
@@ -381,29 +438,36 @@ def _batch(b, h, w, dev, seed=0):
     return tuple(t.to(dev) for t in (images, tile(K_ms), tile(K_inv_ms)))
 
 
+DECODER_PADS = {"reflect_pad_fwd": 13, "reflect_pad_bwd": 13}
+
+
 @pytest.mark.parametrize(
     "overrides,launched",
     [
         ({}, {"warp_gather": 6, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
-              "ssim_fwd": 6, "ssim_bwd": 6}),
+              "ssim_fwd": 6, "ssim_bwd": 6, **DECODER_PADS}),
         ({"warp_impl": "pallas", "pwc_corr": "pallas", "ssim_impl": "xla"},
-         {"warp_gather_nograd": 6, "warp_gather_bwd": 6, "corr_fwd": 5}),
+         {"warp_gather_nograd": 6, "warp_gather_bwd": 6, "corr_fwd": 5, **DECODER_PADS}),
         ({"mode": "flow", "flow_occ_impl": "splat"},
          {"warp_gather": 4, "corr_fwd": 5, "corr_bwd_df1": 5, "corr_bwd_df2": 5,
           "ssim_fwd": 6, "ssim_bwd": 6, "splat_mass": 8}),
         ({"mode": "depth", "enable_depth_ssim": True},
-         {"warp_gather": 6, "ssim_fwd": 6, "ssim_bwd": 6}),
+         {"warp_gather": 6, "ssim_fwd": 6, "ssim_bwd": 6, **DECODER_PADS}),
     ],
 )
 def test_default_config_trains_on_card(cuda, overrides, launched):
     """``init_state(Config(...))`` with the default kernel routing no longer
     raises: one step at 64x128 b2 bf16 has finite losses and launches exactly
-    the kernels of its configuration (all others stay at zero)."""
+    the kernels of its configuration (all others stay at zero). The depth
+    decoder pads the input of each of its 13 convolutions (10 blocks, 3
+    heads at ``num_scales`` 3) once forward and once backward; the flow
+    step builds no depth net."""
     kernels = {
         "warp_gather": tw.WARP_GATHER, "warp_gather_nograd": tw.WARP_GATHER_NOGRAD,
         "warp_gather_bwd": tw.WARP_GATHER_BWD, "corr_fwd": tcv.CORR_FWD,
         "corr_bwd_df1": tcv.CORR_BWD_DF1, "corr_bwd_df2": tcv.CORR_BWD_DF2,
         "ssim_fwd": tss.SSIM_FWD, "ssim_bwd": tss.SSIM_BWD, "splat_mass": tsp.SPLAT_MASS,
+        "reflect_pad_fwd": trp.REFLECT_PAD_FWD, "reflect_pad_bwd": trp.REFLECT_PAD_BWD,
     }
     cfg = Config(img_hw=(64, 128), batch_size=2, **overrides)
     assert cfg.compute_dtype == "bfloat16"
@@ -437,6 +501,8 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda):
         tss.ssim_forward(f.float(), f.float().cpu())
     with pytest.raises(TypeError):
         tsp.splat_mass(torch.zeros((1, 4, 4, 2), dtype=torch.float16, device=cuda))
+    with pytest.raises(TypeError):
+        trp.reflect_pad_nhwc(f)
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout,k,s", [

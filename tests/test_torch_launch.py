@@ -1,6 +1,6 @@
 """The port's kernel launch path, without a card: which device and stream a
-launch goes to, the device check of a launch's tensors, and the SSIM
-kernels' route for more than four channels.
+launch goes to, the device check of a launch's tensors, the SSIM kernels'
+route for more than four channels, and the reflection pad's two routes.
 
 The CUDA runtime is stood in for: ``cuda_lib``'s current-device, raw-stream
 and device-context getters are monkeypatched, and a kernel's ctypes function
@@ -15,7 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
+from unsupervised_depth_opticalflow_egomotion_torch.models.layers import ReflectConv3x3
 from unsupervised_depth_opticalflow_egomotion_torch.ops import cuda_lib
+from unsupervised_depth_opticalflow_egomotion_torch.ops import reflect_pad as trp
 from unsupervised_depth_opticalflow_egomotion_torch.ops import ssim as tss
 
 pytestmark = pytest.mark.quick
@@ -161,3 +165,79 @@ def test_planes_round_trip():
     p = tss.to_planes(x)
     assert p.shape == (12, 3, 4, 1) and torch.equal(p[7, ..., 0], x[1, ..., 1])
     assert torch.equal(tss.from_planes(p, 6), x)
+
+
+def test_reflect_conv_on_a_cpu_tensor_is_the_nchw_pad_bit_for_bit():
+    """On a CPU tensor ``ReflectConv3x3`` pads with ATen's reflection pad on
+    the NCHW view, as before the kernels: its output and its input's and
+    weight's gradients equal that expression's bit for bit."""
+    gen = torch.Generator().manual_seed(0)
+    layer = ReflectConv3x3(6, 4)
+    layer.conv.reset_parameters(gen)
+    x = torch.randn(2, 5, 7, 6, generator=gen)
+    g = torch.randn(2, 5, 7, 4, generator=gen)
+    got, want = [], []
+    for out, pad in ((got, None), (want, "nchw")):
+        xg = x.clone().requires_grad_()
+        layer.zero_grad()
+        if pad is None:
+            y = layer(xg)
+        else:
+            p = F.pad(xg.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+            y = layer.conv(p.permute(0, 2, 3, 1))
+        y.backward(g)
+        out += [y.detach(), xg.grad, layer.conv.weight.grad.clone()]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.fixture
+def plain_pad_kernels(runtime, monkeypatch):
+    """The reflection pad's kernel route on CPU tensors, which stand for
+    tensors on card 1; each kernel is a stand-in that computes the plain
+    version (and its autograd gradient) behind the pointers."""
+    monkeypatch.setattr(trp, "check_cuda_tensor", lambda name, t, dtypes, **kw: 1)
+
+    def fwd(x, out, dtype, b, h, w, c, stream):
+        padded = trp.reflect_pad_plain(_tensor_at(x, (b, h, w, c)))
+        _tensor_at(out, (b, h + 2, w + 2, c)).copy_(padded)
+        return 0
+
+    def bwd(g, dx, dtype, b, h, w, c, stream):
+        src = torch.zeros((b, h, w, c), requires_grad=True)
+        with torch.enable_grad():  # a backward runs with autograd off
+            trp.reflect_pad_plain(src).backward(_tensor_at(g, (b, h + 2, w + 2, c)))
+        _tensor_at(dx, (b, h, w, c)).copy_(src.grad)
+        return 0
+
+    kernels = []
+    for name, fn in (("REFLECT_PAD_FWD", fwd), ("REFLECT_PAD_BWD", bwd)):
+        k = cuda_lib.CudaKernel("reflect_pad", name.lower(), getattr(trp, name)._argtypes[:-1])
+        k._fn = fn
+        monkeypatch.setattr(trp, name, k)
+        kernels.append(k)
+    return kernels
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_first"])
+def test_reflect_pad_kernel_route_pads_and_gathers_the_gradient(plain_pad_kernels, runtime,
+                                                                layout):
+    """The kernel route makes one launch each way on the tensors' card (1):
+    the forward gets (dtype, B, H, W, C) of a contiguous copy of the input
+    and returns the padded NHWC tensor, contiguous; autograd hands the
+    backward the padded cotangent. Both equal the plain version."""
+    fwd, bwd = plain_pad_kernels
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 5, 7, 3, generator=gen)
+    if layout == "channels_first":
+        x = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    g = torch.randn(2, 7, 9, 3, generator=gen)
+    xg = x.clone().requires_grad_()
+    y = trp.ReflectPad.apply(xg.contiguous())
+    y.backward(g)
+    assert fwd.seen == {(2, 2, 5, 7, 3)} and bwd.seen == {(2, 2, 5, 7, 3)}
+    assert fwd.launches == bwd.launches == 1 and runtime == [1, 1]
+    assert y.shape == (2, 7, 9, 3) and y.is_contiguous()
+    x32 = x.clone().requires_grad_()
+    want = trp.reflect_pad_plain(x32)
+    want.backward(g)
+    assert torch.equal(y, want) and torch.equal(xg.grad, x32.grad)

@@ -195,13 +195,20 @@ def test_unported_modes_raise():
 
 
 def test_kernel_sources_and_counters():
-    assert cuda_lib.sources() == ["correlation", "splat", "ssim", "warp_gather"]
-    from unsupervised_depth_opticalflow_egomotion_torch.ops import cost_volume, splat, ssim, warp
+    assert cuda_lib.sources() == ["correlation", "reflect_pad", "splat", "ssim", "warp_gather"]
+    from unsupervised_depth_opticalflow_egomotion_torch.ops import (
+        cost_volume,
+        reflect_pad,
+        splat,
+        ssim,
+        warp,
+    )
 
     kernels = (warp.WARP_GATHER, warp.WARP_GATHER_NOGRAD, warp.WARP_GATHER_BWD,
                cost_volume.CORR_FWD, cost_volume.CORR_BWD_DF1, cost_volume.CORR_BWD_DF2,
-               ssim.SSIM_FWD, ssim.SSIM_BWD, splat.SPLAT_MASS)
-    assert len({(k.library, k.symbol) for k in kernels}) == 9
+               ssim.SSIM_FWD, ssim.SSIM_BWD, splat.SPLAT_MASS,
+               reflect_pad.REFLECT_PAD_FWD, reflect_pad.REFLECT_PAD_BWD)
+    assert len({(k.library, k.symbol) for k in kernels}) == 11
     assert all(isinstance(k.launches, int) for k in kernels)
     assert all((REPO / k.source).is_file() for k in kernels)
     for k in kernels:  # every C entry is defined in its source

@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.int8_conv import int8_conv
+from ..ops.reflect_pad import reflect_pad_nhwc
 
 
 class Conv(nn.Module):
@@ -102,15 +103,16 @@ def conv_lrelu(cin, cout, kernel=3, stride=1, padding=1, dilation=1, dtype=torch
 
 
 class ReflectConv3x3(nn.Module):
-    """Reflection-padded 3x3 conv (monodepth2's Conv3x3; weights at ``.conv``)."""
+    """Reflection-padded 3x3 conv (monodepth2's Conv3x3; weights at ``.conv``).
+    On the card the pad is ``ops/reflect_pad.py``'s kernel pair, whose
+    NHWC-contiguous output the conv hands to cuDNN channels-last."""
 
     def __init__(self, cin, cout, dtype=torch.float32):
         super().__init__()
         self.conv = Conv(cin, cout, 3, 1, 0, dtype=dtype)
 
     def forward(self, x):
-        x = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
-        return self.conv(x.permute(0, 2, 3, 1))
+        return self.conv(reflect_pad_nhwc(x))
 
 
 class _AllReduceSum(torch.autograd.Function):
